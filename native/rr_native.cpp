@@ -3,7 +3,7 @@
 // The reference implements its entire inter-block transport as an mmap'd,
 // double-mapped SPSC circular buffer (reference src/nowasm/circular_buffer.rs:
 // Circ::new maps one memfd twice back-to-back so every window is linear;
-// produce/consume move atomic cursors; Condvar wakeups).  On the TPU
+// produce/consume move atomic cursors; Condvar wakeups).  In this
 // framework the *device* path needs no such buffer — but the host feed does:
 // file/SDR/TCP bytes must be read, converted to planar f32 I/Q, and staged
 // for device_put without stalling the compute stream.  This library is that
@@ -234,8 +234,8 @@ void rr_convert_i16le_f32(const uint8_t* src, float* dst, size_t n) {
 }
 
 // RTL-SDR u8 offset-127 interleaved IQ -> planar f32 I and Q
-// (reference src/rtlsdr_decode.rs: (x-127)*0.008), planar because the TPU
-// staging path transfers separate f32 I/Q streams.
+// (reference src/rtlsdr_decode.rs: (x-127)*0.008), planar because the
+// device chains take separate f32 I/Q streams.
 void rr_convert_u8iq_f32_planar(const uint8_t* src, float* dst_i, float* dst_q,
                                 size_t n_samples, float scale) {
   for (size_t i = 0; i < n_samples; i++) {
@@ -244,7 +244,7 @@ void rr_convert_u8iq_f32_planar(const uint8_t* src, float* dst_i, float* dst_q,
   }
 }
 
-// Interleaved complex64 -> planar f32 I/Q (for host arrays destined to TPU).
+// Interleaved complex64 -> planar f32 I/Q (for host arrays bound for the device).
 void rr_deinterleave_c64(const float* src, float* dst_i, float* dst_q,
                          size_t n_samples) {
   for (size_t i = 0; i < n_samples; i++) {

@@ -2,10 +2,11 @@
 # One-command gate for a fresh clone (mirror of the reference's
 # tickbox/precommit scripts, e.g. 40-test-all-features.sh).
 #
-#   ./precommit.sh          # full: suite + dryrun + bench sanity
+#   ./precommit.sh          # full: suite + dryrun + rehearsals
 #   ./precommit.sh --quick  # suite only
 #
-# Everything runs on CPU (8 virtual devices) — no TPU required.
+# Everything runs on CPU (8 virtual devices) — no GPU required; the
+# rehearsals run the GPU scripts at tiny sizes with interpreted kernels.
 set -euo pipefail
 cd "$(dirname "$0")"
 
@@ -26,15 +27,15 @@ if [[ $quick -eq 0 ]]; then
   echo "== graft entry compile check =="
   JAX_PLATFORMS=cpu python - <<'EOF'
 import jax
-jax.config.update("jax_platforms", "cpu")
 import __graft_entry__ as g
 fn, args = g.entry()
 jax.jit(fn).lower(*args).compile()
 print("entry() compiles")
 EOF
 
-  echo "== bench sanity (CPU path, small) =="
-  JAX_PLATFORMS=cpu python bench.py
+  echo "== bench and chip smoke rehearsals (CPU, tiny sizes) =="
+  JAX_PLATFORMS=cpu python bench.py --rehearse
+  JAX_PLATFORMS=cpu python chip_smoke.py --rehearse
 fi
 
 echo "precommit OK"

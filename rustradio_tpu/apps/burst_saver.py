@@ -21,7 +21,7 @@ import numpy as np
 
 from .. import ops
 from .. import taps as tapgen
-from ..dtypes import parse_frequency, read_iq, stage_iq
+from ..dtypes import parse_frequency
 from ..io import rawfile
 
 
@@ -49,9 +49,9 @@ def extract_bursts(
     """Channel filter -> resample -> power-gate with pre-trigger delay ->
     segment extraction (reference examples/burst_saver.rs:90-126)."""
     power, data_dev = _front(
-        stage_iq(iq), float(samp_rate), float(new_rate), float(iir_alpha), int(delay)
+        jnp.asarray(iq), float(samp_rate), float(new_rate), float(iir_alpha), int(delay)
     )
-    data = read_iq(data_dev)
+    data = np.asarray(data_dev)
     n = min(len(data), int(power.shape[0]))
     start, end = ops.burst_tagger(power[:n], threshold)
     return ops.stream_to_pdu(

@@ -28,13 +28,10 @@ def main(argv=None) -> int:
     import functools
 
     import jax
-
-    from ..dtypes import read_iq
-
     audio, rate = au.au_read(opt.read)
 
-    # upsample audio to the IQ rate, then FM modulate with a VCO; complex
-    # math runs under jit and is read back as f32 pairs (TPU transports)
+    # upsample audio to the IQ rate, then FM modulate with a VCO, under
+    # one jit
     @functools.partial(jax.jit, static_argnames=("sr", "ar", "dev"))
     def modulate(a, sr, ar, dev):
         up = ops.rational_resampler(a, int(sr), int(ar))
@@ -43,7 +40,7 @@ def main(argv=None) -> int:
 
     iq = modulate(audio.astype(np.float32), float(opt.sample_rate), float(rate),
                   float(opt.deviation))
-    rawfile.write_samples(opt.out, read_iq(iq))
+    rawfile.write_samples(opt.out, np.asarray(iq))
     print(f"wrote {iq.shape[0]} IQ samples to {opt.out}", file=sys.stderr)
     return 0
 

@@ -29,21 +29,18 @@ def main(argv=None) -> int:
     opt = p.parse_args(argv)
 
     import jax
-
-    from ..dtypes import read_iq
-
     bits = morse_encode_bits(opt.msg)
     dit_s = 1.2 / opt.wpm  # standard PARIS timing
     sps = int(opt.sample_rate * dit_s)
     key = np.repeat(bits.astype(np.float32), sps)
     n = len(key)
 
-    # keyed tone under jit; complex read back as f32 pairs (TPU transports)
+    # keyed tone under jit
     @jax.jit
     def keyed(k):
         return ops.signal_source_c(n, opt.sample_rate, opt.tone, 1.0) * k
 
-    iq = read_iq(keyed(key))
+    iq = np.asarray(keyed(key))
     if opt.out.endswith(".au"):
         with open(opt.out, "wb") as f:
             f.write(au.au_encode(iq.real * 0.8, int(opt.sample_rate)))

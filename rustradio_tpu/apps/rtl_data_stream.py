@@ -32,14 +32,11 @@ def downsample_u8(raw_u8: np.ndarray, sample_rate: float, downsample_rate: float
     """RTL u8 IQ -> low-pass -> resample -> re-encode as RTL u8 IQ.
 
     Mirrors the reference chain RtlSdrDecode -> FftFilter -> RationalResampler
-    -> RtlSdrEncode (examples/rtl_data_stream.rs graph body).  Complex math
-    runs under jit with staged/pair-read I/O (TPU transports)."""
+    -> RtlSdrEncode (examples/rtl_data_stream.rs graph body), under one
+    jit."""
     import functools
 
     import jax
-
-    from ..dtypes import read_iq, stage_iq
-
     iq = rawfile.rtlsdr_decode(np.asarray(raw_u8, np.uint8))
 
     @functools.partial(jax.jit, static_argnames=("sr", "dr"))
@@ -48,8 +45,8 @@ def downsample_u8(raw_u8: np.ndarray, sample_rate: float, downsample_rate: float
         y = ops.filter_complex(x, lp)
         return ops.rational_resampler(y, int(dr), int(sr))
 
-    x = chain(stage_iq(iq), float(sample_rate), float(downsample_rate))
-    return rawfile.rtlsdr_encode(read_iq(x)).tobytes()
+    x = chain(jnp.asarray(iq), float(sample_rate), float(downsample_rate))
+    return rawfile.rtlsdr_encode(np.asarray(x)).tobytes()
 
 
 def control_reader(stdin, requests: "queue.Queue"):

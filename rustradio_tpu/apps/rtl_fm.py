@@ -32,10 +32,9 @@ def main(argv=None) -> int:
     p.add_argument("--out", required=True, help=".au output file")
     p.add_argument("--rtl_u8", action="store_true", help="input is RTL-SDR u8 IQ")
     p.add_argument("--precision", choices=["w3", "i8"], default="w3",
-                   help="--rtl_u8 fused-kernel precision: 'w3' bf16-exact "
-                        "planes (3 MXU passes), 'i8' int8-MXU planes "
-                        "(exact s32 accumulation, 2x pass rate, 1/4 the "
-                        "plane HBM)")
+                   help="--rtl_u8 FM chain precision (ops.fm_chain): 'w3' "
+                        "bf16 planes (the fused kernel on the GPU), 'i8' "
+                        "the s8 wire grid (plain XLA form)")
     p.add_argument("--frequency", type=parse_frequency, default=100_000_000.0,
                    help="sim/rtl mode: tuner center frequency")
     p.add_argument("--sim_tone", action="append", default=[],
@@ -89,7 +88,7 @@ def main(argv=None) -> int:
     if not is_live and opt.rtl_u8:
         raw = np.fromfile(opt.read, np.uint8)
         # keep the raw planes too, on the (u8 - 127)/128 wire grid: exact
-        # in bf16 (w3) AND the s8 image the i8 kernel expects; the demod
+        # in bf16 (w3) AND on the s8 grid (i8); the demod
         # is scale-invariant so the normalization is free
         pairs = raw[: len(raw) // 2 * 2].reshape(-1, 2).astype(np.float32)
         u8_planes = ((pairs[:, 0] - 127.0) / 128.0,
@@ -102,13 +101,11 @@ def main(argv=None) -> int:
     import functools
 
     import jax
-
-    from ..dtypes import stage_iq
+    import jax.numpy as jnp
 
     fs = float(opt.sample_rate)
 
-    # complex math under jit; host complex staged as f32 pairs (TPU
-    # transports)
+    # the whole chain under one jit
     @functools.partial(jax.jit, static_argnames=("sr", "ar", "cutoff", "dev"))
     def chain(x, sr, ar, cutoff, dev):
         lp = tapgen.low_pass_complex(sr, cutoff, cutoff / 2, "hamming")
@@ -119,10 +116,8 @@ def main(argv=None) -> int:
     @functools.partial(jax.jit,
                        static_argnames=("sr", "ar", "cutoff", "dev", "prec"))
     def chain_u8(i_pl, q_pl, sr, ar, cutoff, dev, prec):
-        # 8-bit wire format: the whole filter+demod runs as ONE fused
-        # Pallas memory pass with exact planes — "w3" bf16 (f32-level
-        # parity, ~2.3x the f32 path) or "i8" int8-MXU (exact s32
-        # accumulation; models/fm.py).
+        # 8-bit wire format: filter + demod as ONE fused kernel pass on
+        # the GPU with exact planes (ops.fm_chain)
         from ..models.fm import fm_demod_chain_planar
 
         demod = fm_demod_chain_planar(
@@ -136,7 +131,7 @@ def main(argv=None) -> int:
                          float(opt.cutoff), float(opt.deviation),
                          opt.precision)
     else:
-        audio = chain(stage_iq(iq), fs, float(opt.audio_rate),
+        audio = chain(jnp.asarray(iq), fs, float(opt.audio_rate),
                       float(opt.cutoff), float(opt.deviation))
     audio = np.asarray(audio) * opt.volume
     with open(opt.out, "wb") as f:

@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..dtypes import parse_frequency, stage_iq
+from ..dtypes import parse_frequency
 from ..io import rawfile
 from ..parallel.channelizer import channelizer_taps, pfb_channelize
 
@@ -102,7 +102,7 @@ def main(argv=None) -> int:
         power = jnp.mean(jnp.real(ch) ** 2 + jnp.imag(ch) ** 2, axis=0)
         return power, ch
 
-    power, ch = scan(stage_iq(iq))
+    power, ch = scan(jnp.asarray(iq))
     power = np.asarray(power)
     order = np.argsort(power)[::-1][: opt.top]
     print(f"{'chan':>5} {'freq':>12} {'power dB':>9}")

@@ -31,16 +31,13 @@ def main(argv=None) -> int:
     import functools
 
     import jax
-
-    from ..dtypes import read_iq
-
     n = int(opt.sample_rate * opt.seconds)
     if opt.real:
         f = functools.partial(ops.signal_source_f, n, opt.sample_rate, opt.freq, opt.amplitude)
         y = np.asarray(jax.jit(f)())
     else:
         f = functools.partial(ops.signal_source_c, n, opt.sample_rate, opt.freq, opt.amplitude)
-        y = read_iq(jax.jit(f)())
+        y = np.asarray(jax.jit(f)())
     rawfile.write_samples(opt.out, y)
     print(f"wrote {n} samples to {opt.out}", file=sys.stderr)
     return 0

@@ -12,7 +12,6 @@ from .sources import (
     ConstantSource,
     FileSource,
     NoiseSource,
-    PackedIqRingSource,
     SignalSourceComplex,
     SignalSourceFloat,
     VectorSource,

@@ -69,12 +69,6 @@ class Block:
     domain = "device"
     interp = 1
     deci = 1
-    # Kernel flavor for segment fusion: "conv" (lowers to a
-    # HIGHEST-precision XLA conv) or "pallas" (contains a pallas_call).
-    # On TPU one XLA program holding BOTH compiles pathologically slowly
-    # (minutes vs seconds — doc/performance.md), so the graph fuser never
-    # puts conflicting flavors in one segment.  None fuses with either.
-    compile_group: str | None = None
     # The runners wrap a device block's apply/apply_chunk in jax.jit.
     # Set jit_chunk = False when the block's logic is not jax-traceable
     # (Python-value-dependent control flow or host numpy inside) — the

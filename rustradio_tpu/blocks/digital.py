@@ -107,15 +107,6 @@ class CorrelateAccessCode(Block):
             raise ValueError("access code must be nonempty")
         self.allowed_diffs = allowed_diffs
 
-    # lowers to a HIGHEST XLA conv; keep out of pallas-flavored fused
-    # segments (Block.compile_group).  Lazy: _on_tpu() at construction
-    # would initialize the jax backend before the caller picks a platform.
-    @property
-    def compile_group(self):
-        from ..ops.pallas_kernels import _on_tpu
-
-        return "conv" if _on_tpu() else None
-
     @property
     def shard_halo(self):
         return len(self.code) - 1

@@ -11,22 +11,6 @@ from ..streams import Tag
 from .base import Block
 
 
-def _kernel_group(ntaps: int) -> str | None:
-    """Fusion flavor on TPU: filters on the banded Pallas path are
-    "pallas", longer ones lower to HIGHEST XLA convs ("conv") — the two
-    must not share a fused program (see Block.compile_group).
-
-    Called lazily (compile_group properties), never at block
-    construction: _on_tpu() touches jax.devices(), and initializing the
-    backend as a side effect of building a graph would defeat a later
-    jax.config.update("jax_platforms", ...)."""
-    from ..ops.pallas_kernels import _on_tpu
-
-    if not _on_tpu():
-        return None
-    return "pallas" if ntaps <= 4096 else "conv"
-
-
 class FirFilter(Block):
     """Decimating FIR, valid-conv alignment (reference src/fir.rs:485-547).
 
@@ -39,16 +23,11 @@ class FirFilter(Block):
         self.taps = np.asarray(taps)
         self.deci = deci
         self.translate = translate
-        # Banded-kernel precision mode used when the TPU segment lowering
-        # fuses this filter into pallas_fm_chain (see lowering.py and the
-        # kernel's precision table — "w3"/"i8" are exact only for
-        # 8-bit-sourced wire grids).  Non-lowered paths always run the
-        # f32-exact HIGHEST form.
+        # Precision mode used when the segment lowering fuses this filter
+        # into the FM kernel (see lowering.py and ops.fm_chain's precision
+        # table — "w3"/"i8" are exact only for 8-bit-sourced wire grids).
+        # Non-lowered paths always run the f32 form.
         self.precision = precision
-
-    @property
-    def compile_group(self):
-        return _kernel_group(len(self.taps))
 
     def shard_fn(self, di):
         """Mesh plan: valid-conv windows realigned to the global stream.
@@ -153,12 +132,6 @@ class FftFilter(Block):
     def __init__(self, taps, fft_size: int | None = None):
         self.taps = np.asarray(taps)
         self.fft_size = fft_size
-        real = not np.iscomplexobj(self.taps) or not np.any(np.imag(self.taps))
-        self._real_taps = real
-
-    @property
-    def compile_group(self):
-        return _kernel_group(len(self.taps)) if self._real_taps else None
 
     @property
     def shard_halo(self):
@@ -183,10 +156,6 @@ class FftFilterFloat(Block):
     def __init__(self, taps, fft_size: int | None = None):
         self.taps = np.asarray(taps, np.float32)
         self.fft_size = fft_size
-
-    @property
-    def compile_group(self):
-        return _kernel_group(len(self.taps))
 
     @property
     def shard_halo(self):
@@ -215,10 +184,6 @@ class Hilbert(Block):
         self.taps = tapgen.hilbert(ntaps, window)
 
     @property
-    def compile_group(self):
-        return _kernel_group(self.ntaps)
-
-    @property
     def shard_halo(self):
         return self.ntaps  # reference keeps ntaps history (src/hilbert.rs)
 
@@ -234,24 +199,12 @@ class Hilbert(Block):
         n = x.shape[0]
         import jax
 
-        # Same kernel dispatch as ops.hilbert_transform so streaming is
-        # BITWISE offline: banded MXU kernel on TPU (a HIGHEST conv here
-        # would co-compile with Pallas blocks in fused segments — the
-        # pathological XLA compile), direct conv elsewhere.  The demod
-        # downstream amplifies even 1e-7 kernel differences at
-        # near-zero-magnitude samples, so the dispatch must match.
-        from ..ops.pallas_kernels import _on_tpu
+        # The same conv as ops.hilbert_transform, so streaming is bitwise
+        # offline: the demod downstream amplifies even 1e-7 differences at
+        # near-zero-magnitude samples.
+        from ..ops.fir import _conv1d
 
-        if _on_tpu():
-            from ..ops.pallas_kernels import pallas_fir_decimate
-
-            y_im = pallas_fir_decimate(ext, np.asarray(self.taps), 1)[
-                self.ntaps - 1 :
-            ][:n]
-        else:
-            from ..ops.fir import _conv1d
-
-            y_im = _conv1d(ext, self.taps, stride=1, pad_left=0)[:n]
+        y_im = _conv1d(ext, self.taps, stride=1, pad_left=0)[:n]
         d = self.ntaps - self.ntaps // 2
         y_re = ext[self.ntaps - d : self.ntaps - d + n]
         return ext[-self.ntaps :], jax.lax.complex(y_re, y_im)

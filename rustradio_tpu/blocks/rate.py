@@ -42,19 +42,6 @@ class RationalResampler(Block):
         self.interp = interp // g
         self.deci = deci // g
 
-    # ops.rational_resampler's pure-decimation path lowers to a Pallas
-    # kernel on TPU; flavor the block so the fuser never co-compiles it
-    # with a HIGHEST conv (pathological XLA compile, see graph._segments).
-    # A property, NOT an __init__ assignment: touching jax.devices() at
-    # block-construction time would initialize the backend before the
-    # caller could select a platform (jax.config.update must precede
-    # first device use on this image).
-    @property
-    def compile_group(self):
-        from ..ops.pallas_kernels import _on_tpu
-
-        return "pallas" if _on_tpu() else None
-
     def shard_fn(self, di):
         """Mesh plan (closes the r4 verdict's mtgraph gap): the counter
         algorithm's output position is a pure function of the global
@@ -121,8 +108,7 @@ class RationalResampler(Block):
         out_end = -(-(in_off + n) * self.interp // self.deci)  # ceil
         k = np.arange(out_off, out_end)
         idx = (k * self.deci) // self.interp - in_off
-        # jitted gather: eager ops on complex device arrays are
-        # unimplemented on some TPU transports
+        # jitted gather: one dispatch
         y = _take(jnp.asarray(x), jnp.asarray(idx))
         return {"in_off": in_off + n, "out_off": out_end}, y
 

@@ -62,41 +62,3 @@ def parse_verbosity(s: str) -> int:
         raise ValueError(
             f"{s!r}: valid values are: error, warn, info, debug, trace"
         ) from None
-
-
-_COMBINE = None
-
-
-def stage_iq(x):
-    """Move a complex stream to the device safely.
-
-    Some TPU transports cannot transfer complex64 host<->device: host
-    arrays are staged as f32 real/imag pairs and combined on device.
-    Device arrays and real dtypes pass through.
-    """
-    import jax
-
-    if isinstance(x, np.ndarray) and np.iscomplexobj(x):
-        global _COMBINE
-        if _COMBINE is None:
-            _COMBINE = jax.jit(jax.lax.complex)
-        return _COMBINE(
-            jnp.asarray(np.ascontiguousarray(x.real, np.float32)),
-            jnp.asarray(np.ascontiguousarray(x.imag, np.float32)),
-        )
-    return jnp.asarray(x)
-
-
-def read_iq(x) -> np.ndarray:
-    """Read a (possibly device) complex stream back to host complex64.
-
-    Complex device->host transfers are unsupported on some TPU transports;
-    read real/imag as two f32 arrays and recombine.
-    """
-    import jax
-
-    if isinstance(x, jax.Array) and jnp.iscomplexobj(x):
-        re = np.asarray(jnp.real(x))
-        im = np.asarray(jnp.imag(x))
-        return (re + 1j * im).astype(np.complex64)
-    return np.asarray(x)

@@ -3,7 +3,7 @@
 Binds the pyrtlsdr python bindings (librtlsdr) to the framework's
 :class:`~rustradio_tpu.hw.driver.SdrDriver` interface, completing the
 RTL-SDR path: ``RtlDriver`` -> ``RtlSdrSource`` (u8 wire format) ->
-``RtlSdrDecode`` -> the TPU receive chains.  Without pyrtlsdr installed,
+``RtlSdrDecode`` -> the device receive chains.  Without pyrtlsdr installed,
 construction raises ImportError with a pointer at the Sim/Soapy routes
 (rtl_tcp and the SoapySDR adapter reach the same hardware).
 

@@ -1,4 +1,4 @@
-"""Segment lowering: block patterns -> fused Pallas kernels.
+"""Segment lowering: block patterns -> the fused FM kernel.
 
 The reference's flagship throughput comes from plain block composition
 (examples/ax25-1200-rx.rs:191-336).  Here the analogous promise is that a
@@ -7,16 +7,17 @@ fused device segment contains the FM shape
 
     [FloatToComplex ->] FirFilter(real taps, deci) -> QuadratureDemod
 
-the graph runners execute it as ONE ``ops.pallas_fm_chain`` memory pass
-(banded MXU FIR on both I/Q planes + discriminator in VMEM) instead of
-two kernels with an HBM round-trip between, on TPU only (the CPU path
-keeps the exact composed ops).  With the FloatToComplex prefix the I/Q
-planes feed the kernel directly and the complex stream never
-materializes.
+the graph runners execute it as ONE ``ops.fm_chain`` kernel pass (FIR on
+both I/Q planes + discriminator, with the filtered stream never leaving
+registers) instead of two kernels with a device-memory round trip
+between.  This happens where the kernel runs (``backend.use_kernels``:
+the GPU); elsewhere the graph keeps the exact composed ops.  With the
+FloatToComplex prefix the I/Q planes feed the kernel directly and the
+complex stream never materializes.
 
 Numerics: the fused kernel uses the polynomial fast atan2 (~1e-4 rad —
 the same trade the reference ships as its ``fast-math`` feature,
-src/quadrature_demod.rs:28-29) and the banded-dot accumulation order, so
+src/quadrature_demod.rs:28-29) and its own accumulation order, so
 lowered output differs from the composed path by <~2e-4; chunked
 execution equals the lowered offline stream except at chunk seams
 (<1e-6, the seam sample is recomputed by one full-window dot).
@@ -34,49 +35,14 @@ from __future__ import annotations
 import numpy as np
 
 
-class PackedIqChunk:
-    """One streaming chunk of a resident packed-plane ring.
-
-    A view, not data: ``pr``/``pi`` are the FULL packed I/Q planes
-    (ops.fm_plane_pack layout, written once at ingest) and ``row0`` is a
-    traced packed-row offset — one packed row is deci*128 input samples
-    and 128 outputs, so the offset addresses both grids.  The lowered FM
-    executor hands these straight to ``pallas_fm_chain_window``, whose
-    DMA reads the ring in place: the steady-state per-chunk HBM traffic
-    is exactly the kernel's own (no slice/pad/cast pass).  ``meta`` is
-    static: (deci, tile_rows, g, wlen, ntaps, n_chunk).
-    """
-
-    def __init__(self, pr, pi, row0, meta):
-        self.pr, self.pi, self.row0, self.meta = pr, pi, row0, meta
-
-    def tree_flatten(self):
-        return (self.pr, self.pi, self.row0), self.meta
-
-    @classmethod
-    def tree_unflatten(cls, meta, leaves):
-        return cls(*leaves, meta)
-
-
-def _register_packed_chunk():
-    import jax
-
-    jax.tree_util.register_pytree_node_class(PackedIqChunk)
-    return PackedIqChunk
-
-
-_register_packed_chunk()
-
-
 def _is_fm_fir(block) -> bool:
     from .blocks.filters import FirFilter
+    from .ops.fm import kernel_takes
 
     return (
         isinstance(block, FirFilter)
         and block.translate is None
-        and not np.iscomplexobj(block.taps)
-        and len(block.taps) <= 1024
-        and block.deci >= 1
+        and kernel_takes(block.taps, block.deci, block.precision)
     )
 
 
@@ -123,7 +89,7 @@ def find_fm_pairs(seg, ext_out):
         plan = {
             "fir": fir,
             "quad": n,
-            "taps": np.asarray(fir.block.taps, np.float32),
+            "taps": np.real(fir.block.taps).astype(np.float32),
             "deci": fir.block.deci,
             "gain": float(n.block.gain),
             "precision": getattr(fir.block, "precision", "highest"),
@@ -146,7 +112,7 @@ def find_fm_pairs(seg, ext_out):
 
 def _alignment(ntaps: int, deci: int):
     """Left zero-pad and kernel-output offset mapping valid-conv FIR
-    alignment onto pallas_fm_chain's full-conv grid: valid output k is
+    alignment onto the kernel's full-conv grid: valid output k is
     the kernel's filtered sample k + d0 after padding p zeros."""
     p = (-(ntaps - 1)) % deci
     d0 = (ntaps - 1 + p) // deci
@@ -158,32 +124,35 @@ def _fused_planes(xr, xi, taps, deci, gain, precision, n_fir):
     demod(y_valid[k], y_valid[k+1]), length n_fir - 1."""
     import jax.numpy as jnp
 
-    from .ops.pallas_kernels import pallas_fm_chain
+    from .ops.fm import fm_chain_kernel
 
     ntaps = len(taps)
     p, d0 = _alignment(ntaps, deci)
     if p:
         xr = jnp.pad(xr, (p, 0))
         xi = jnp.pad(xi, (p, 0))
-    audio = pallas_fm_chain(xr, xi, taps, deci, gain, precision=precision)
+    audio = fm_chain_kernel(xr, xi, taps, deci, gain, precision)
     # audio[j] = demod(y_full[j], y_full[j+1]); y_valid[k] = y_full[k+d0]
     return audio[d0 : d0 + n_fir - 1]
 
 
-def _y_valid_at(xr, xi, taps, deci, ks):
+def _y_valid_at(xr, xi, taps, deci, precision, ks):
     """Filtered valid samples y_valid[k] for a static index list, by
-    direct HIGHEST dots (seam values; tiny next to the kernel)."""
+    direct f32 (HIGHEST) dots over the planes rounded as the kernel
+    rounds them (seam values; tiny next to the kernel)."""
     import jax
     import jax.numpy as jnp
 
+    from .ops.fm import round_planes
+
     trev = jnp.asarray(taps[::-1].copy())
     ntaps = len(taps)
-    wr = jnp.stack(
+    wr = round_planes(jnp.stack(
         [jax.lax.dynamic_slice_in_dim(xr, k * deci, ntaps) for k in ks]
-    )
-    wi = jnp.stack(
+    ), precision)
+    wi = round_planes(jnp.stack(
         [jax.lax.dynamic_slice_in_dim(xi, k * deci, ntaps) for k in ks]
-    )
+    ), precision)
     yr = jnp.dot(wr, trev, precision=jax.lax.Precision.HIGHEST)
     yi = jnp.dot(wi, trev, precision=jax.lax.Precision.HIGHEST)
     return yr, yi
@@ -209,89 +178,6 @@ def fused_fm_apply(plan, *xs):
                          plan["precision"], n_fir)
 
 
-def _fused_fm_chunk_packed(plan, st_fir, st_quad, ck: PackedIqChunk):
-    """Zero-copy streaming form over a packed ring (PackedIqChunk).
-
-    The kernel computes this chunk's window of the demod grid directly
-    from the resident planes; the carried previous filtered sample seeds
-    the in-kernel demod carry (SMEM) and the window's last filtered
-    sample comes back as the new carry — no per-chunk output pass, no
-    concat/pad/cast, no seam dots.  ``st_fir`` rides through untouched
-    (history lives in the ring); ``st_quad`` keeps QuadratureDemod's
-    state convention ((0,) at stream start -> the chunk drops the
-    windows touching the zero prefix, (1,) complex after)."""
-    import jax
-    import jax.numpy as jnp
-
-    from .ops.pallas_kernels import pallas_fm_chain_window
-
-    taps, deci, gain = plan["taps"], plan["deci"], plan["gain"]
-    ntaps = len(taps)
-    mdeci, tile_rows, g, wlen, mntaps, n_chunk = ck.meta
-    if mdeci != deci or mntaps != ntaps:
-        raise ValueError(
-            "PackedIqRingSource geometry (deci/taps) does not match the "
-            "downstream FirFilter's"
-        )
-    if (ntaps - 1) % deci:
-        raise ValueError("packed ring path needs (ntaps-1) % deci == 0")
-    prev = jnp.asarray(st_quad, jnp.complex64)
-    if prev.shape[0]:
-        seed = (jnp.real(prev[0]).astype(jnp.float32),
-                jnp.imag(prev[0]).astype(jnp.float32))
-    else:
-        seed = (jnp.float32(0.0), jnp.float32(0.0))
-    audio = pallas_fm_chain_window(
-        ck.pr, ck.pi, taps, deci, gain, row0=ck.row0, g=g,
-        tile_rows=tile_rows, precision=plan["precision"],
-        seed=jnp.stack(seed),
-    )
-    if prev.shape[0] == 0:
-        # stream start: drop the ramp (windows touching the zero
-        # prefix) and the zero-seeded first pair — the lowered valid
-        # stream starts at demod(y_valid[0], y_valid[1])
-        d0 = (ntaps - 1) // deci
-        audio = audio[d0 + 1 :]
-    # next chunk's seed: the window's LAST filtered sample, recomputed
-    # from the ring by two ntaps-dots (an in-kernel SMEM output for the
-    # carry failed Mosaic on this toolchain)
-    ylr, yli = _y_last_from_ring(ck, plan)
-    new_quad = jax.lax.complex(ylr, yli)[None]
-    return st_fir, new_quad, audio
-
-
-def _y_last_from_ring(ck: PackedIqChunk, plan):
-    """The chunk window's last filtered sample y[m_last], dotted straight
-    from the packed ring: m_last*deci sits at flat padded position
-    (row0 + g*tile_rows)*step - deci, and the window's ntaps inputs end
-    there.  i8 planes decode via x = (v+1)/128 (the exact s8 wire image,
-    ops.pallas_kernels._to_s8)."""
-    import jax
-    import jax.numpy as jnp
-
-    taps, deci = plan["taps"], plan["deci"]
-    ntaps = len(taps)
-    mdeci, tile_rows, g, wlen, _nt, _n = ck.meta
-    step = deci * 128
-    # flat window start (step-relative): position within row start_row
-    off_in_rows = step - deci + wlen - ntaps  # >= 0 (step > deci, wlen >= ntaps)
-    nrows = -(-(off_in_rows + ntaps) // step)
-    start_row = ck.row0 + g * tile_rows - 1
-
-    def window(p):
-        rows = jax.lax.dynamic_slice_in_dim(p, start_row, nrows)
-        flat = rows.reshape(-1)[off_in_rows : off_in_rows + ntaps]
-        x = flat.astype(jnp.float32)
-        if p.dtype == jnp.int8:
-            x = (x + jnp.float32(1.0)) * jnp.float32(1.0 / 128.0)
-        return x
-
-    trev = jnp.asarray(taps[::-1].copy())
-    yr = jnp.dot(window(ck.pr), trev, precision=jax.lax.Precision.HIGHEST)
-    yi = jnp.dot(window(ck.pi), trev, precision=jax.lax.Precision.HIGHEST)
-    return yr, yi
-
-
 def fused_fm_chunk(plan, st_fir, st_quad, *xs):
     """Streaming form over the ORIGINAL blocks' states.
 
@@ -303,8 +189,6 @@ def fused_fm_chunk(plan, st_fir, st_quad, *xs):
     import jax
     import jax.numpy as jnp
 
-    if isinstance(xs[0], PackedIqChunk):
-        return _fused_fm_chunk_packed(plan, st_fir, st_quad, xs[0])
     taps, deci, gain = plan["taps"], plan["deci"], plan["gain"]
     ntaps = len(taps)
     if plan["f2c"] is not None:
@@ -347,12 +231,13 @@ def fused_fm_chunk(plan, st_fir, st_quad, *xs):
     inner = _fused_planes(xr, xi, taps, deci, gain, plan["precision"], n_fir)
     # seam output: demod(prev_y, y_valid[0]) when a previous filtered
     # sample is carried; plus the new carried y_valid[n_fir-1]
-    y0r, y0i = _y_valid_at(xr, xi, taps, deci, [0, n_fir - 1])
+    y0r, y0i = _y_valid_at(xr, xi, taps, deci, plan["precision"],
+                           [0, n_fir - 1])
     prev = jnp.asarray(st_quad, jnp.complex64)
     if prev.shape[0]:
         pr = jnp.real(prev[0]).astype(jnp.float32)
         pi = jnp.imag(prev[0]).astype(jnp.float32)
-        from .ops.pallas_kernels import fast_atan2
+        from .ops.demod import fast_atan2
 
         dr = pr * y0r[0] + pi * y0i[0]
         di = pr * y0i[0] - pi * y0r[0]

@@ -27,9 +27,6 @@ import numpy as np
 
 from .. import taps as tapgen
 from .. import ops
-from ..dtypes import read_iq, stage_iq
-
-
 @dataclasses.dataclass
 class Ax25Packet:
     """One decoded AX.25 frame.
@@ -297,10 +294,9 @@ def _afsk_discriminator(fm, samp_rate, cutoff):
 
 def iq_front_end(iq, samp_rate: float, new_rate: float = 50_000.0, fast_fm: bool = False):
     """Complex IQ -> FM-demodulated floats at new_rate
-    (examples/ax25-1200-rx.rs:163-188).  Dense chain runs in one jit;
-    complex input is staged as f32 pairs (TPU transport constraint)."""
+    (examples/ax25-1200-rx.rs:163-188).  Dense chain runs in one jit."""
     return _channel_fm(
-        stage_iq(iq), float(samp_rate), float(new_rate), 20_000.0, 100.0, bool(fast_fm)
+        jnp.asarray(iq), float(samp_rate), float(new_rate), 20_000.0, 100.0, bool(fast_fm)
     )
 
 
@@ -327,7 +323,7 @@ def ax25_9600_rx(
     ``sync`` as in :func:`ax25_1200_rx`."""
 
     nrz = _channel_fm(
-        stage_iq(iq), float(samp_rate), float(new_rate), 12_500.0, 100.0
+        jnp.asarray(iq), float(samp_rate), float(new_rate), 12_500.0, 100.0
     )
     if sync == "events":
         (vals, mask, _), _valid = ops.symbol_sync_events(
@@ -365,7 +361,7 @@ def ax25_1200_wpcr_rx(
     slicer -> NRZI -> HDLC (no descrambler at 1200 bd)."""
 
     power, fm = _burst_front(
-        stage_iq(iq), float(samp_rate), float(new_rate), 20_000.0, float(iir_alpha)
+        jnp.asarray(iq), float(samp_rate), float(new_rate), 20_000.0, float(iir_alpha)
     )
     nrz = _afsk_discriminator(fm, float(new_rate), 2400.0)
     n = min(int(nrz.shape[0]), int(power.shape[0]))
@@ -438,13 +434,12 @@ def g3ruh_modulate(
         ops.rational_resampler(jnp.asarray(line, jnp.float32), int(if_rate), int(baud))
     )
     pn = np.where(line > 0, deviation, -deviation).astype(np.float32)
-    return read_iq(_g3ruh_shape(pn, float(sample_rate), float(if_rate), float(amplitude)))
+    return np.asarray(_g3ruh_shape(pn, float(sample_rate), float(if_rate), float(amplitude)))
 
 
 @functools.partial(jax.jit, static_argnames=("sample_rate", "if_rate", "amplitude"))
 def _g3ruh_shape(pn, sample_rate, if_rate, amplitude):
-    """VCO + gain + RF resample + 8.8 kHz channel filter, one jit
-    (complex math must run under jit on some TPU transports)."""
+    """VCO + gain + RF resample + 8.8 kHz channel filter, one jit."""
     iq, _ = ops.vco(pn, 2.0 * np.pi / if_rate)
     iq = iq * jnp.float32(amplitude)
     iq = ops.rational_resampler(iq, int(sample_rate), int(if_rate))
@@ -467,7 +462,7 @@ def ax25_9600_wpcr_rx(
     examples/ax25-9600-wpcr.rs:93-142.
     """
     power, demod = _burst_front(
-        stage_iq(iq), float(samp_rate), float(new_rate), 20_000.0, float(iir_alpha)
+        jnp.asarray(iq), float(samp_rate), float(new_rate), 20_000.0, float(iir_alpha)
     )
     start, end = ops.burst_tagger(power[: demod.shape[0]], threshold)
     bursts = ops.stream_to_pdu(

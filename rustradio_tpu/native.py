@@ -214,7 +214,7 @@ def convert_u8iq_planar(raw: np.ndarray, scale: float = 0.008):
 
 
 def deinterleave_c64(x: np.ndarray):
-    """complex64 -> planar (I, Q) f32 — the TPU staging conversion."""
+    """complex64 -> planar (I, Q) f32 — the host-side staging conversion."""
     x = np.ascontiguousarray(x, np.complex64)
     n = len(x)
     i = np.empty(n, np.float32)

@@ -5,8 +5,8 @@ op(x, state, ...)``) over 1-D sample arrays, jit/vmap/shard_map-friendly:
 static shapes, no data-dependent Python control flow.  The stateful block
 wrappers in :mod:`rustradio_tpu.blocks` build on these.
 
-Semantics are documented per-op against the reference implementation in
-/root/reference/src/ (rustradio); see each docstring for the file:line.
+Semantics are documented per-op against the reference implementation
+(rustradio's src/); see each docstring for the file:line.
 """
 
 from .elementwise import (
@@ -25,7 +25,8 @@ from .elementwise import (
 from .fir import fir_filter, fir_filter_full, fir_filter_translating
 from .fft_filter import fft_filter, fft_filter_float, filter_complex, filter_float
 from .resampler import rational_resampler, resampler_indices
-from .demod import fast_fm, quadrature_demod
+from .demod import fast_atan2, fast_fm, quadrature_demod
+from .fm import fm_chain, fm_chain_plain
 from .hilbert import hilbert_transform
 from .iir import iir_filter, single_pole_iir
 from .nrzi import nrzi_decode, nrzi_encode
@@ -42,22 +43,4 @@ from .correlate import correlate_access_code
 from .fft import fft_pdu, fft_stream
 from .signal import signal_source_c, signal_source_f
 
-_PALLAS_NAMES = (
-    "fast_atan2",
-    "fm_plane_pack",
-    "pallas_fir_decimate",
-    "pallas_fm_chain",
-    "pallas_quad_demod",
-)
-
-__all__ = [k for k in dir() if not k.startswith("_")] + list(_PALLAS_NAMES)
-
-
-def __getattr__(name):
-    # Lazy: jax.experimental.pallas is a heavy import that only TPU paths
-    # need; host-only tools shouldn't pay it at package import.
-    if name in _PALLAS_NAMES:
-        from . import pallas_kernels
-
-        return getattr(pallas_kernels, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [k for k in dir() if not k.startswith("_")]

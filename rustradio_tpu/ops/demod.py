@@ -6,14 +6,46 @@
   y[n] = (x[n].im - x[n-2].im) * x[n-1].re - (x[n].re - x[n-2].re) * x[n-1].im
   with q1 = q2 = 0 at stream start.  Two-sample halo, no atan.
 
-On TPU both are pure elementwise VPU math over shifted views; the
-reference's 4x "fast-math atan2" advantage disappears because XLA's atan2
-is already vectorized.
+Both are pure elementwise math over shifted views, which XLA fuses into
+one pass.  ``fast_atan2`` is the polynomial atan2 of the fused FM chain
+(ops/fm.py), the trade the reference ships as its ``fast-math``
+feature (src/quadrature_demod.rs:28-29).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
+
+_PI = np.float32(np.pi)
+
+
+def _atan_poly(z):
+    """Minimax-ish arctan approximation on [-1, 1] (|err| < 1e-4 rad),
+    the classic 7th-order odd polynomial used by fast-math libraries."""
+    z2 = z * z
+    return z * (
+        jnp.float32(0.9998660)
+        + z2
+        * (
+            jnp.float32(-0.3302995)
+            + z2 * (jnp.float32(0.1801410) + z2 * (jnp.float32(-0.0851330) + z2 * jnp.float32(0.0208351)))
+        )
+    )
+
+
+def fast_atan2(y, x):
+    """Branch-free atan2 via the octant reduction + odd polynomial."""
+    abs_y = jnp.abs(y)
+    abs_x = jnp.abs(x)
+    # z in [0, 1]: ratio of smaller to larger magnitude
+    mx = jnp.maximum(abs_x, abs_y)
+    mn = jnp.minimum(abs_x, abs_y)
+    z = mn / jnp.maximum(mx, jnp.float32(1e-37))
+    a = _atan_poly(z)
+    a = jnp.where(abs_y > abs_x, jnp.float32(np.pi / 2) - a, a)
+    a = jnp.where(x < 0, _PI - a, a)
+    return jnp.where(y < 0, -a, a)
 
 
 def quadrature_demod(x, gain: float = 1.0):

@@ -1,6 +1,6 @@
 """Elementwise sample ops.
 
-TPU-trivial: XLA fuses chains of these into neighbouring kernels, so unlike
+Trivial on the device: XLA fuses chains of these into neighbouring kernels, so unlike
 the reference (one block + one buffer each: src/add_const.rs, src/xor.rs,
 src/multiply_const.rs, src/complex_to_mag2.rs, src/binary_slicer.rs,
 src/convert.rs) they cost no memory traffic when composed.

@@ -3,7 +3,7 @@
 * ``fft_pdu`` — FFT one burst, optional window + fftshift (reference
   src/fft.rs:18-46; window/shift options live on the block there).
 * ``fft_stream`` — frame a stream into size-N chunks and FFT each frame
-  (reference src/fft_stream.rs:74-118); on TPU this is one batched FFT over
+  (reference src/fft_stream.rs:74-118); here this is one batched FFT over
   a (nframes, size) reshape instead of the reference's per-frame loop.
   Returns the flattened frame stream plus the number of frames; leftover
   samples (< size) are the caller's carry.

@@ -1,11 +1,11 @@
-"""FFT fast convolution (overlap-save on TPU).
+"""FFT fast convolution (overlap-save).
 
 The reference implements overlap-ADD with fft_size = 2*next_pow2(ntaps)
 (src/fft_filter.rs:36-42), taps pre-FFT'd with 1/N normalization folded in
 (:151-161), tail carried between rounds (:336-348).  Its stream output is
 the full zero-history convolution ``y[n] = sum_k taps[k] x[n-k]``.
 
-On TPU, overlap-SAVE maps better: one batched FFT over a reshaped
+Here overlap-SAVE maps better: one batched FFT over a reshaped
 (nblocks, fft_size) array, pointwise multiply with the tap spectrum,
 batched IFFT, then a static slice — no scatter-add dependency chain between
 blocks, so every block is independent and the whole thing is one big
@@ -15,7 +15,6 @@ batched kernel.  The fft_size is auto-tuned to a few times the tap count
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -88,8 +87,7 @@ def fft_filter_decimate(x, taps, deci: int, fft_size: int | None = None):
     Computes ``fft_filter(x, taps)[::deci]`` with zero gathers: decimation
     in time is spectrum aliasing, so each overlap-save frame folds its
     spectrum ``deci``-fold and takes a ``fft_size/deci``-point IFFT — less
-    FFT work than the undecimated filter and contiguous outputs.  TPU
-    strided slices lower to gathers (~100x slower than this).
+    FFT work than the undecimated filter and contiguous outputs.
     """
     if deci == 1:
         return fft_filter(x, taps, fft_size)
@@ -124,51 +122,26 @@ def fft_filter_decimate(x, taps, deci: int, fft_size: int | None = None):
 
 
 def filter_float(x, taps, fft_size: int | None = None):
-    """Fastest real-taps filter for the backend, same semantics as
-    ``fft_filter_float`` (zero history, y[m] = sum_j taps[j] x[m-j]).
+    """Real-taps filter, same semantics as ``fft_filter_float`` (zero
+    history, y[m] = sum_j taps[j] x[m-j]): a direct conv for short
+    filters (``fir.use_conv``), overlap-save above."""
+    from .fir import fir_filter_full, use_conv
 
-    On TPU, filters up to ~4k taps run as the banded MXU kernel at
-    stride 1 — the band is nearly dense there (K = 127 + ntaps per
-    128-output row), measured 3x the overlap-save FFT path at 1205 taps
-    (9.8 vs 3.3 Gsps on v5e) with 4e-7 agreement.  Longer filters (or
-    other backends) use overlap-save.
-    """
     taps = np.asarray(taps)
-    from .pallas_kernels import _on_tpu, pallas_fir_decimate
-
-    if (
-        _on_tpu()
-        and not np.iscomplexobj(taps)
-        and len(taps) <= 4096
-    ):
-        return pallas_fir_decimate(x, taps, 1)
+    if fft_size is None and not np.iscomplexobj(taps) and use_conv(len(taps)):
+        return fir_filter_full(jnp.asarray(x, jnp.float32), taps)
     return fft_filter_float(x, taps, fft_size)
 
 
 def filter_complex(x, taps, fft_size: int | None = None):
-    """Fastest complex-stream filter for the backend, same semantics as
-    ``fft_filter`` (zero history).
+    """Complex-stream filter, same semantics as ``fft_filter`` (zero
+    history): a direct conv for short filters (``fir.use_conv``),
+    overlap-save above."""
+    from .fir import fir_filter_full, use_conv
 
-    Filter designs are usually real-coefficient (low_pass_complex returns
-    real taps cast to complex); on TPU those run as TWO stride-1 banded
-    MXU passes over the I/Q planes for up to ~4k taps.  Genuinely
-    complex taps (e.g. pre-rotated translating filters) and long designs
-    use overlap-save.
-    """
     taps = np.asarray(taps)
-    from .pallas_kernels import _on_tpu, pallas_fir_decimate
-
-    if (
-        _on_tpu()
-        and len(taps) <= 4096
-        and (not np.iscomplexobj(taps) or not np.any(np.imag(taps)))
-    ):
-        tr = np.real(taps).astype(np.float32)
-        x = jnp.asarray(x, jnp.complex64)
-        return jax.lax.complex(
-            pallas_fir_decimate(jnp.real(x), tr, 1),
-            pallas_fir_decimate(jnp.imag(x), tr, 1),
-        )
+    if fft_size is None and use_conv(len(taps)):
+        return fir_filter_full(jnp.asarray(x, jnp.complex64), taps)
     return fft_filter(x, taps, fft_size)
 
 

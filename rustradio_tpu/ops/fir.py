@@ -11,11 +11,12 @@ Reference semantics (src/fir.rs):
   src/fft_filter.rs:289-354).  ``fir_filter_full`` provides the same
   alignment so the two are interchangeable.
 
-TPU mapping: a FIR is a matmul between windows of x and the tap vector.
-For real throughput we reshape x into overlapping frames and contract on
-the MXU via ``jax.lax.conv_general_dilated``, which XLA lowers to MXU
-convolutions on TPU.  Decimation is the conv stride — free, not a
-post-gather.
+Both run as XLA's own forms.  ``fir_filter`` is always a strided
+``conv_general_dilated`` at HIGHEST precision (decimation is the conv
+stride, not a post-gather): its result does not depend on how a stream is
+chunked, which FirFilter's streaming == offline contract needs.
+``fir_filter_full`` takes the conv up to ``CONV_MAX_TAPS_PER_DECI * deci``
+taps and overlap-save FFT (ops.fft_filter) above it.
 """
 
 from __future__ import annotations
@@ -32,7 +33,14 @@ def _conv1d(x, taps, stride: int = 1, pad_left: int = 0):
     where xpad = [zeros(pad_left), x].
     """
     x = jnp.asarray(x)
+    if isinstance(taps, np.ndarray) and np.iscomplexobj(taps) and not np.any(np.imag(taps)):
+        taps = np.real(taps)  # real designs stored complex: two convs, not four
     taps = jnp.asarray(taps)
+    if jnp.iscomplexobj(x) and not jnp.iscomplexobj(taps):
+        return jax.lax.complex(
+            _conv1d(jnp.real(x), taps, stride, pad_left),
+            _conv1d(jnp.imag(x), taps, stride, pad_left),
+        )
     if jnp.iscomplexobj(x) or jnp.iscomplexobj(taps):
         # XLA conv doesn't take complex on all backends; expand to real pairs:
         # (xr + i xi) * (tr + i ti) -> (xr*tr - xi*ti) + i(xr*ti + xi*tr)
@@ -56,22 +64,24 @@ def _conv1d(x, taps, stride: int = 1, pad_left: int = 0):
         padding=[(pad_left, 0)],
         dimension_numbers=("NCW", "OIW", "NCW"),
         preferred_element_type=jnp.float32,
-        # TPU convs default to a single bf16 MXU pass (~0.5% error);
-        # HIGHEST forces bf16x3, keeping f32-level accuracy.
+        # f32 convs may run in TF32 by default (~1e-3 relative);
+        # HIGHEST keeps full f32.
         precision=jax.lax.Precision.HIGHEST,
     )
     return out[0, 0]
 
 
-def _use_mxu(ntaps: int) -> bool:
-    """Filters up to 4k taps go through the banded Pallas MXU kernel on
-    TPU (its weight stack is VMEM-resident; same bound as
-    ops.filter_float — measured 3x the FFT path at 1205 taps); longer
-    ones use XLA conv/FFT.  Staying on the pallas path also avoids the
-    pathological conv+pallas one-program compile (doc/performance.md)."""
-    from .pallas_kernels import _on_tpu
+#: Direct conv up to this many taps per unit of decimation, overlap-save
+#: above: a strided conv's work per input sample grows with ntaps/deci,
+#: overlap-save's hardly at all.  On an H100 (2^22 samples) the conv wins
+#: at 5 taps / deci 1 and 17 taps / deci 4 and loses at 9 / deci 1 and
+#: 33 / deci 4 (PERF.md).
+CONV_MAX_TAPS_PER_DECI = 6
 
-    return ntaps <= 4096 and _on_tpu()
+
+def use_conv(ntaps: int, deci: int = 1) -> bool:
+    """Whether fir_filter_full takes the direct conv (else overlap-save)."""
+    return ntaps <= CONV_MAX_TAPS_PER_DECI * deci
 
 
 def fir_filter(x, taps, deci: int = 1):
@@ -85,14 +95,6 @@ def fir_filter(x, taps, deci: int = 1):
     if n < ntaps:
         raise ValueError(f"input {n} shorter than taps {ntaps}")
     m = (n - ntaps) // deci + 1
-    if _use_mxu(ntaps):
-        from .pallas_kernels import pallas_fir_decimate
-
-        # Valid output m is the full conv at (ntaps-1) + m*deci; left-pad so
-        # that offset lands on the kernel's decimation grid.
-        p = (-(ntaps - 1)) % deci
-        y = pallas_fir_decimate(jnp.pad(jnp.asarray(x), (p, 0)), taps, deci)
-        return y[(p + ntaps - 1) // deci :][:m]
     y = _conv1d(x, taps, stride=deci, pad_left=0)
     return y[:m]
 
@@ -106,10 +108,17 @@ def fir_filter_full(x, taps, deci: int = 1):
     n = x.shape[0]
     ntaps = len(taps)
     m = -(-n // deci)
-    if _use_mxu(ntaps):
-        from .pallas_kernels import pallas_fir_decimate
+    if not use_conv(ntaps, deci):
+        from .fft_filter import fft_filter, fft_filter_decimate
 
-        return pallas_fir_decimate(x, taps, deci)[:m]
+        if deci & (deci - 1):
+            # the spectrum fold needs deci | fft_size (a power of two)
+            y = fft_filter(x, taps)[::deci]
+        else:
+            y = fft_filter_decimate(x, taps, deci)
+        if not (jnp.iscomplexobj(x) or np.iscomplexobj(taps)):
+            y = jnp.real(y)
+        return y[:m]
     y = _conv1d(x, taps, stride=deci, pad_left=ntaps - 1)
     return y[:m]
 

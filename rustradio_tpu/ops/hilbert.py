@@ -29,17 +29,7 @@ def hilbert_transform(x, ntaps: int = 65, window: str = "hamming", taps=None):
     n = x.shape[0]
     # Imag: FIR over zeros(ntaps) ++ x, windows ending inside the stream:
     # y_im[i] = sum_j taps[j] x[i-1-j].
-    from .pallas_kernels import _on_tpu, pallas_fir_decimate
-
-    if _on_tpu():
-        # banded MXU kernel (same zero-history FIR); keeping the whole
-        # chain in Pallas also avoids a pathological XLA compile when a
-        # HIGHEST-precision conv and a pallas_call share one program
-        # (observed ~9 min vs seconds on v5e)
-        z = jnp.pad(x, (1, 0))[:-1]  # z[k] = x[k-1]
-        y_im = pallas_fir_decimate(z, np.asarray(taps), 1)
-    else:
-        y_im = _conv1d(jnp.pad(x, (ntaps, 0)), taps, stride=1, pad_left=0)[:n]
+    y_im = _conv1d(jnp.pad(x, (ntaps, 0)), taps, stride=1, pad_left=0)[:n]
     # Real: xp[i + ntaps//2] with xp = zeros(ntaps) ++ x
     # = x[i + ntaps//2 - ntaps] = x[i - (ntaps - ntaps//2)]
     d = ntaps - ntaps // 2

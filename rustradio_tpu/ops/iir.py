@@ -3,7 +3,7 @@
 * ``single_pole_iir`` — y[n] = alpha*x[n] + (1-alpha)*y[n-1], y[-1]=0
   (reference src/single_pole_iir_filter.rs:31-44).  A linear first-order
   recurrence: parallelized with ``jax.lax.associative_scan`` (log-depth on
-  TPU instead of the reference's sample-serial loop).
+  the device instead of the reference's sample-serial loop).
 * ``iir_filter`` — the reference's odd "IIR" (src/iir_filter.rs:84-101):
   ret = taps[0]*x[n] + sum_i taps[i+1]*y[n-1-i]; general order, via scan.
 """
@@ -61,7 +61,9 @@ def iir_filter(x, taps, history=None):
     fb = jnp.asarray(taps[1:])  # feedback taps, index i -> y[n-1-i]
 
     def step(h, xn):
-        yn = taps[0] * xn + jnp.dot(fb, h)
+        # f32 dots may run in TF32 by default; a feedback path compounds
+        # that error sample after sample, so ask for full f32
+        yn = taps[0] * xn + jnp.dot(fb, h, precision=jax.lax.Precision.HIGHEST)
         h = jnp.concatenate([yn[None], h[:-1]])
         return h, yn
 

@@ -6,7 +6,7 @@ form: after consuming i+1 inputs the cumulative output count is
 ceil((i+1)*interp/deci), so output k comes from input floor(k*deci/interp).
 Total outputs for N inputs: ceil(N*interp/deci).
 
-On TPU this is a pure gather with a statically computable index map —
+Here it is a pure gather with a statically computable index map —
 trivially parallel, unlike the reference's sequential counter loop.
 """
 
@@ -38,25 +38,7 @@ def rational_resampler(x, interp: int, deci: int):
         return jnp.asarray(x)
     n = x.shape[0]
     if deci % interp == 0:
-        d = deci // interp
-        x = jnp.asarray(x)
-        from .pallas_kernels import _on_tpu
-
-        if _on_tpu() and x.ndim == 1:
-            if x.dtype in (jnp.float32, jnp.complex64):
-                # TPU strided slices lower to gathers (~240 Msps); the
-                # unit-tap banded kernel decimates at memory speed (~15 Gsps).
-                from .pallas_kernels import pallas_fir_decimate
-
-                return pallas_fir_decimate(x, np.asarray([1.0], np.float32), d)
-            # reshape + column slice beats the 1-D gather ~5x
-            m = n // d
-            if m * d == n:
-                return x.reshape(m, d)[:, 0]
-            return jnp.pad(x, [(0, m * d + d - n)] + [(0, 0)] * (x.ndim - 1)).reshape(
-                -1, d, *x.shape[1:]
-            )[: -(-n // d), 0]
-        return x[::d]
+        return jnp.asarray(x)[:: deci // interp]
     if interp % deci == 0:
         # Pure interpolation: repeat, no gather.
         r = interp // deci

@@ -18,8 +18,9 @@ feedback row), a whole block of B bits is the affine map
     s_B  = A^B s + U x      w[d] = c A^d e_L — the impulse response)
 
 over GF(2).  All four matrices are precomputed bit matrices; on device
-the block outputs are two 0/1 matmuls (EXACT even in the MXU's single
-bf16 pass — 0/1 inputs are exact bf16 and the accumulator is f32) plus a
+the block outputs are two 0/1 matmuls (EXACT even at reduced matmul
+precision — 0/1 inputs are exact in TF32 and bf16, and the f32
+accumulator holds every count below 2^24) plus a
 tiny per-block state scan.  ``scramble`` dispatches to this for long
 inputs; the per-bit ``lax.scan`` form remains the reference semantics
 (bit-equality asserted in tests/test_ops.py).
@@ -131,7 +132,10 @@ def _scramble_blocked(x, s0, mask: int, length: int, block: int):
     nb = x.shape[0] // block
     X = x.reshape(nb, block).astype(jnp.float32)
     # per-block state injections V[k] = U x_k, then the tiny state chain
-    # s_{k+1} = M s_k + V[k] (all mod 2; 0/1 matmuls are exact)
+    # s_{k+1} = M s_k + V[k] (all mod 2).  These f32 dots stay at default
+    # precision: even where that is TF32 (or one bf16 pass) the 0/1
+    # operands are exact, products accumulate in f32, and every sum is a
+    # count below 2^24, so the result is exact.
     V = jnp.dot(X, jnp.asarray(U.T, jnp.float32)).astype(jnp.int32) & 1
     Mt = jnp.asarray(M.T, jnp.float32)
 

@@ -6,7 +6,7 @@ filter (src/iir_filter.rs:104-125), emitting the center sample of each
 symbol.  It is an inherently sequential per-sample recurrence, so it runs
 as a ``lax.scan`` — sequential within a stream, but vmap-able across
 channels/bursts.  For burst traffic prefer :mod:`rustradio_tpu.ops.wpcr`,
-which is batch-FFT based and TPU-native.
+which is batch-FFT based and parallel across the burst.
 
 ``zero_crossing_sync`` ports the simpler fixed-clock variant
 (src/zero_crossing.rs).
@@ -42,10 +42,10 @@ def symbol_sync(
     ``unroll`` is forwarded to ``lax.scan`` — it unrolls the per-sample
     step body without changing its element-wise semantics (outputs stay
     bit-identical; asserted in tests/test_multichannel.py), trading
-    program size for fewer sequential scan iterations.  On TPU the scan's
-    per-step overhead dominates this tiny body, so the vmapped decode
-    bank (models/multichannel.recover_symbols_batch) runs markedly faster
-    unrolled; see doc/performance.md "decode bank".
+    program size for fewer sequential scan iterations.  On an accelerator
+    the scan's per-step overhead dominates this tiny body, so the vmapped
+    decode bank (models/multichannel.recover_symbols_batch) runs markedly
+    faster unrolled.
     """
     if not sps > 1.0:
         raise ValueError("sps must be > 1")
@@ -170,7 +170,7 @@ def _ted_reduce(t0_raw, clock, mx):
 def symbol_sync_events(x, sps: float, max_deviation: float = 0.5,
                        clock_taps=(0.5, 0.5), max_events: int | None = None,
                        unroll: int = 8, state=None, return_state: bool = False):
-    """Event-driven reformulation of :func:`symbol_sync` — the TPU-native
+    """Event-driven reformulation of :func:`symbol_sync` — the device
     decode-bank path.
 
     The reference recurrence (src/symbol_sync.rs:115-218) only mutates

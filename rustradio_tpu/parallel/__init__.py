@@ -5,7 +5,8 @@ plus TCP (SURVEY §2.7).  Here the equivalents are XLA collectives over a
 ``jax.sharding.Mesh``: the *time axis* of a stream is sharded across chips,
 and filter history ("sequence-dimension chunking" in the reference —
 src/fft_filter.rs:336-348, src/fir.rs:493-505) becomes a left-halo exchange
-via ``ppermute`` riding ICI.
+via ``ppermute`` over the device interconnect (NVLink between the cards
+of a host).
 """
 
 from .mesh import init_distributed, make_mesh, make_mesh_2d, time_axis_spec

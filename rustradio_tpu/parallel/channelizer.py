@@ -2,10 +2,9 @@
 
 Not present in the reference (its graphs are single-chain; SURVEY §2.6 item
 6 calls this out as the channel-parallel dimension the model allows), but
-it is the canonical TPU-native wideband workload: the polyphase FIR is a
-grouped conv (MXU), the channel combine is one batched FFT, and the
-per-channel demod bank is vmapped — with the channel axis shardable across
-the pod.
+it is the canonical wideband workload: the polyphase FIR is L row-shifted
+FMAs, the channel combine is one batched FFT, and the per-channel demod
+bank is vmapped — with the channel axis shardable across devices.
 
 Semantics: channel k of ``pfb_channelize(x, taps, M)`` equals the DDC
 ``decimate_M(lowpass_h(x * exp(-2j pi k t / M)))`` with zero history:
@@ -37,42 +36,17 @@ def _windowed_sinc(ntaps: int, cutoff: float) -> np.ndarray:
     return (h * np.hamming(ntaps)).astype(np.float32)
 
 
-def _idft_mxu(v, M: int):
-    """IFFT(v, axis=1) * M as ONE direct MXU matmul at HIGHEST.
-
-    Measured standalone (doc/performance.md "Channelizer", r4 shootout):
-    25.8 Gsps vs 16.6 for jnp.fft's lane-axis IFFT — the contraction
-    rides the MXU instead of the VPU's butterflies, and ~1e-7 relative
-    accuracy (multi-pass bf16) stays far inside the 1e-3 parity budget,
-    unlike the single-pass bf16 DFT the r3 shootout rejected.  A radix-2
-    split halves the MACs and measures 35.1 Gsps on pre-split halves,
-    but every way of producing the even/odd branch order costs a lane
-    permutation (gather) or strided relayout that eats more than the
-    split saves — measured 19.1 Gsps split-with-extraction standalone
-    and a 7.6 Gsps combined collapse when the permutation was folded
-    into the branch-FIR frame gather.  The direct form needs no
-    reordering anywhere.
-    """
-    W = np.exp(
-        2j * np.pi * np.outer(np.arange(M), np.arange(M)) / M
-    ).astype(np.complex64)
-    return jnp.matmul(v, W, precision=jax.lax.Precision.HIGHEST)
-
-
 def pfb_channelize(x, taps, n_channels: int):
     """Critically-sampled polyphase channelizer.
 
     Returns (nframes, n_channels) complex64; channel k is centered at
     k * fs / M (wrapping to negative frequencies above M/2).
 
-    Formulation (r3): the branch FIR is L row-shifted elementwise FMAs on
-    the (nframes, M) frame matrix — exact f32 on the VPU at ~28.6 Gsps
-    measured, vs a feature_group_count=M grouped conv whose groups of one
-    channel map poorly to the MXU AND force the HIGHEST-conv compile
-    flavor (the conv+pallas co-compile hazard, graph._segments).  The
-    channel combine is one batched IFFT along the channel (lane) axis —
-    the measured bottleneck at ~16.4 Gsps; a DFT-as-matmul beats it only
-    below the 1e-3 parity budget (doc/performance.md "Channelizer").
+    Formulation: the branch FIR is L row-shifted elementwise FMAs on the
+    (nframes, M) frame matrix (exact f32, fused by XLA), instead of a
+    feature_group_count=M grouped conv whose groups of one channel map
+    poorly to matrix units.  The channel combine is one batched IFFT
+    along the channel axis.
     """
     M = n_channels
     x = jnp.asarray(x, jnp.complex64)
@@ -82,9 +56,6 @@ def pfb_channelize(x, taps, n_channels: int):
     L = len(taps) // M
     n = x.shape[0]
     nframes = n // M
-    from ..ops.pallas_kernels import _on_tpu
-
-    use_mxu_idft = _on_tpu() and 128 <= M <= 1024
     # Frame decomposition: f[i, m] = x[i*M - m], via a left pad of M-1 and
     # a reshape with reversed columns.
     xq = jnp.pad(x, (M - 1, 0))[: nframes * M]
@@ -96,11 +67,8 @@ def pfb_channelize(x, taps, n_channels: int):
     for l in range(L):
         fl = jnp.pad(f, ((l, 0), (0, 0)))[:nframes]
         acc = acc + h[l] * fl
-    # y_k[i] = sum_m e^{2 pi i k m / M} v[i, m]  ==  M * IFFT over m.
-    if use_mxu_idft:
-        # direct MXU IDFT: measured 25.8 Gsps standalone vs 16.6 for the
-        # lane-axis FFT (doc/performance.md "Channelizer")
-        return _idft_mxu(acc, M)
+    # y_k[i] = sum_m e^{2 pi i k m / M} v[i, m]  ==  M * IFFT over m
+    # (cuFFT on the GPU; a dense DFT matmul measured slower, PERF.md).
     return jnp.fft.ifft(acc, axis=1) * M  # (nframes, M)
 
 

@@ -3,7 +3,7 @@
 The reference carries per-block overlap state across work() calls
 (src/fft_filter.rs:336-348 tail, src/fir.rs:493-505 lookahead); with the
 time axis sharded across chips, the same samples move between neighbours
-via ``ppermute`` — a single ICI hop per stream per filter.
+via ``ppermute`` — a single interconnect hop per stream per filter.
 """
 
 from __future__ import annotations

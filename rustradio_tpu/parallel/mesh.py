@@ -12,7 +12,7 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     """Initialize multi-host JAX (SURVEY §2.7: the reference's inter-process
     transport is TCP + the DATA_STREAM protocol; here hosts join one
     ``jax.distributed`` job and the mesh spans (host, chip) so collectives
-    ride ICI within a host's slice and DCN between hosts).
+    ride NVLink within a host and the network between hosts).
 
     MUST be the first JAX call in the process — touching devices (even
     ``jax.process_count()``) initializes the local backend and makes
@@ -31,9 +31,9 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
 def make_mesh(n_devices: int | None = None, axis: str = "time") -> Mesh:
     """A 1-D device mesh over the first ``n_devices`` devices.
 
-    Streams shard their sample axis over ``axis``; for multi-host pods the
-    same axis spans (host, chip) so halos ride ICI between neighbouring
-    shards and DCN only between hosts.
+    Streams shard their sample axis over ``axis``; for multi-host runs the
+    same axis spans (host, chip) so halos ride NVLink between neighbouring
+    shards and the network only between hosts.
     """
     devs = jax.devices()
     if n_devices is None:

@@ -1,11 +1,11 @@
 """Explicit pipeline parallelism: one stage per device.
 
 The reference's MTGraph runs every block on its own OS thread with stream
-buffers between them (src/mtgraph.rs:76-130).  On TPU the default is to
+buffers between them (src/mtgraph.rs:76-130).  Here the default is to
 FUSE the dense chain into one XLA program (graph.py segments); this module
 is the explicit alternative SURVEY §2.6 item 1 calls for when stages must
-live on separate devices (e.g. each stage near its own HBM working set):
-device d applies stage d, and chunks hand off to the next device over ICI
+live on separate devices (e.g. each stage near its own memory working set):
+device d applies stage d, and chunks hand off to the next device
 with ``ppermute`` — classic software pipelining, one chunk in flight per
 device.
 

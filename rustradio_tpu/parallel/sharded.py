@@ -3,7 +3,8 @@
 Each function is semantically identical to its offline counterpart in
 :mod:`rustradio_tpu.ops` applied to the *global* stream, but executes with
 the sample axis sharded over a mesh axis, exchanging filter halos between
-neighbouring shards over ICI instead of carrying host-side state.
+neighbouring shards over the device interconnect instead of carrying
+host-side state.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _shmap(mesh, axis, f, nout=1):
         in_specs=(P(axis),),
         out_specs=P(axis) if nout == 1 else tuple(P(axis) for _ in range(nout)),
         # pallas_call out_shapes carry no varying-mesh-axes info; skip the
-        # vma check so MXU kernels can run inside the shard body.
+        # vma check so Pallas kernels can run inside the shard body.
         check_vma=False,
     )
 
@@ -53,7 +54,7 @@ def sharded_fir_filter(x, taps, mesh, deci: int = 1, axis: str = "time"):
 
 
 def sharded_fft_filter(x, taps, mesh, axis: str = "time", fft_size: int | None = None):
-    """Overlap-save FFT filter with the time axis sharded; halo over ICI."""
+    """Overlap-save FFT filter with the time axis sharded; halo via ppermute."""
     taps = np.asarray(taps)
     ntaps = len(taps)
     def body(xs):

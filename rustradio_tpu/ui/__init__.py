@@ -1,6 +1,6 @@
 """Browser UI: live spectrum + waterfall dashboard served over HTTP.
 
-The TPU-native equivalent of the reference's browser UI crate
+The device-backed equivalent of the reference's browser UI crate
 (rustradio-ui/src/lib.rs:44-62, doc/ui.md:1-44) and the rtl_fm terminal
 waterfall (examples/rtl_fm.rs:81-120): the device computes batched FFT
 frames, the host serves them to a canvas dashboard.

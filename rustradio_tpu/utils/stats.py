@@ -3,7 +3,7 @@
 The reference prints a per-block wall+CPU time table after every run
 (src/graph.rs:175-257).  Graph.generate_stats() covers that; this module
 adds rate metering for streaming feeds and a simple per-op roofline
-estimate (achieved GB/s vs the chip's HBM bandwidth).
+estimate (achieved GB/s vs the card's memory bandwidth).
 """
 
 from __future__ import annotations
@@ -11,13 +11,11 @@ from __future__ import annotations
 import dataclasses
 import time
 
-#: Published HBM bandwidth per chip, GB/s (for roofline %).
+#: Published memory bandwidth, GB/s, keyed on JAX's ``device_kind``
+#: (NVIDIA H100 data sheet: SXM5 3.35 TB/s HBM3, PCIe 2.0 TB/s HBM2e).
 HBM_GBPS = {
-    "TPU v4": 1200.0,
-    "TPU v5 lite": 820.0,
-    "TPU v5": 2765.0,
-    "TPU v6 lite": 1640.0,
-    "cpu": 50.0,
+    "NVIDIA H100 80GB HBM3": 3350.0,
+    "NVIDIA H100 PCIe": 2000.0,
 }
 
 
@@ -44,18 +42,19 @@ class RateMeter:
 
 
 def device_hbm_gbps(device=None) -> float:
+    """The device's published memory bandwidth; ValueError for a device
+    not in HBM_GBPS (no default: a guessed peak gives a false roofline)."""
     import jax
 
     device = device or jax.devices()[0]
-    kind = getattr(device, "device_kind", "cpu")
-    for k, v in HBM_GBPS.items():
-        if k.lower() in str(kind).lower():
-            return v
-    return HBM_GBPS.get("cpu", 50.0)
+    kind = device.device_kind
+    if kind not in HBM_GBPS:
+        raise ValueError(f"no published memory bandwidth for {kind!r}")
+    return HBM_GBPS[kind]
 
 
 def roofline_report(bytes_moved: int, seconds: float, device=None) -> str:
-    """Achieved bandwidth vs the chip's HBM roofline."""
+    """Achieved bandwidth vs the device's memory roofline."""
     gbps = bytes_moved / max(seconds, 1e-12) / 1e9
     roof = device_hbm_gbps(device)
     return f"{gbps:.1f} GB/s ({100 * gbps / roof:.0f}% of ~{roof:.0f} GB/s HBM)"

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 
+@functools.partial(jax.jit, static_argnames=("fft_size", "hop", "window"))
 def _spectrogram_jit(x, fft_size: int, hop: int, window: str):
     n = x.shape[0]
     nframes = max((n - fft_size) // hop + 1, 0)
@@ -31,22 +32,9 @@ def _spectrogram_jit(x, fft_size: int, hop: int, window: str):
     return 10.0 * jnp.log10(p + jnp.float32(1e-20))
 
 
-@functools.partial(jax.jit, static_argnames=("fft_size", "hop", "window"))
-def _spectrogram_ri(re, im, fft_size: int, hop: int, window: str):
-    return _spectrogram_jit(jax.lax.complex(re, im), fft_size, hop, window)
-
-
 def spectrogram(x, fft_size: int = 1024, hop: int | None = None, window: str = "hanning"):
-    """Returns (nframes, fft_size) power in dB, DC-centered.
-
-    Host numpy input is staged as separate f32 real/imag arrays and combined
-    on device (complex64 host->device transfers are unsupported on some TPU
-    transports)."""
+    """Returns (nframes, fft_size) power in dB, DC-centered."""
     hop = hop or fft_size
-    if isinstance(x, np.ndarray):
-        re = np.ascontiguousarray(np.real(x), np.float32)
-        im = np.ascontiguousarray(np.imag(x), np.float32)
-        return _spectrogram_ri(re, im, fft_size, hop, window)
     return _spectrogram_jit(jnp.asarray(x, jnp.complex64), fft_size, hop, window)
 
 

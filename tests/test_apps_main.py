@@ -211,8 +211,8 @@ def test_rtl_fm_u8_fused_path(tmp_path):
             "--cutoff", "25k", "--deviation", "10k"]
     assert rtl_fm.main(["-r", u8_path, "--rtl_u8", "--out", out_u8] + args) == 0
     assert rtl_fm.main(["-r", c32_path, "--out", out_c32] + args) == 0
-    # the i8 fused path recovers the same audio (scale-invariant demod;
-    # exact s32 accumulation on TPU, same fallback off-TPU)
+    # the i8 path (the s8 wire grid, plain XLA form) recovers the same
+    # audio (scale-invariant demod)
     out_i8 = str(tmp_path / "a_i8.au")
     assert rtl_fm.main(["-r", u8_path, "--rtl_u8", "--precision", "i8",
                         "--out", out_i8] + args) == 0

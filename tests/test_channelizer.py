@@ -1,7 +1,6 @@
 """Polyphase channelizer vs explicit per-channel DDC."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -89,13 +88,20 @@ def test_sharded_channel_bank_matches_local():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_idft_mxu_matches_ifft():
-    # the TPU path's direct MXU IDFT must equal jnp.fft.ifft * M
-    from rustradio_tpu.parallel.channelizer import _idft_mxu
-
+def test_pfb_matches_f64_polyphase_256():
+    # 256 channels against a float64 polyphase reference (branch FIR on the
+    # reversed frame matrix, then an IDFT over the branches)
     rng = np.random.RandomState(7)
-    v = (rng.randn(64, 256) + 1j * rng.randn(64, 256)).astype(np.complex64)
-    got = np.asarray(_idft_mxu(jnp.asarray(v), 256))
-    want = np.fft.ifft(v.astype(np.complex128), axis=1) * 256
+    M = 256
+    x = (rng.randn(M * 64) + 1j * rng.randn(M * 64)).astype(np.complex64)
+    h = channelizer_taps(M, taps_per_branch=4).astype(np.float64)
+    got = np.asarray(pfb_channelize(x, h, M))
+    nframes = len(x) // M
+    xp = np.concatenate([np.zeros(M - 1), x.astype(np.complex128)])[: nframes * M]
+    f = xp.reshape(nframes, M)[:, ::-1]
+    hl = h.reshape(-1, M)
+    v = sum(hl[l] * np.concatenate([np.zeros((l, M)), f])[:nframes]
+            for l in range(hl.shape[0]))
+    want = np.fft.ifft(v, axis=1) * M
     err = np.abs(got - want) / np.abs(want).max()
     assert err.max() < 1e-5

@@ -16,43 +16,14 @@ import pytest
 
 from rustradio_tpu import ops
 from rustradio_tpu.models.ax25 import ax25_1200_rx
-
-FS = 24_000.0
-
-
-def _nrzi_line(bits):
-    # transition-on-0 NRZI line (initial state arbitrary for the decoder)
-    return (1 + np.cumsum(1 - np.asarray(bits))) % 2
-
-
-def _afsk(line, baud, amp, lead=400):
-    sps = FS / baud
-    n = int(len(line) * sps)
-    bit_at = np.minimum((np.arange(n) / sps).astype(int), len(line) - 1)
-    freqs = np.where(line[bit_at] == 1, 1200.0, 2200.0)
-    phase = np.cumsum(2 * np.pi * freqs / FS)
-    a = (amp * np.sin(phase)).astype(np.float32)
-    z = np.zeros(lead, np.float32)
-    return np.concatenate([z, a, z])
-
-
-def _framed(payload: bytes):
-    return np.asarray(ops.hdlc_frame(ops.fcs_add(np.frombuffer(payload, np.uint8))))
+from rustradio_tpu.models.ax25_corpus import FS, afsk as _afsk, corpus
+from rustradio_tpu.models.ax25_corpus import framed as _framed
+from rustradio_tpu.models.ax25_corpus import nrzi_line as _nrzi_line
 
 
 @pytest.fixture(scope="module")
 def corpus_1000():
-    noises = [0.0, 0.15, 0.3, 0.35, 0.4]
-    rng = np.random.RandomState(0)
-    parts, payloads = [], []
-    for i in range(1000):
-        p = f"N0CALL-{i%16}>APRS:T#{i:04d} corpus {'y'*(i%29)}".encode()
-        payloads.append(p)
-        amp = 0.05 + 0.95 * (i % 10) / 9
-        drift = ((i % 7) - 3) / 3 * 0.015
-        x = _afsk(_nrzi_line(_framed(p)), 1200.0 * (1 + drift), amp)
-        parts.append(x + rng.randn(len(x)).astype(np.float32) * (noises[i % 5] * amp))
-    return np.concatenate(parts), payloads
+    return corpus(1000, seed=0)
 
 
 def _count(audio, payloads, **kw):

@@ -1,7 +1,10 @@
 """SigMF, data_stream protocol, and IL2P."""
 
+import os
+
 import numpy as np
 import pytest
+from test_models_extra import IL2P_BITS
 
 from rustradio_tpu.io import data_stream as ds
 from rustradio_tpu.io import sigmf
@@ -125,11 +128,12 @@ def test_data_stream_rejects_zero_len():
 # ---------------------------------------------------------------- IL2P
 
 
+@pytest.mark.skipif(not os.path.exists(IL2P_BITS), reason="reference testdata absent")
 def test_il2p_header_decode():
     # reference test (src/il2p_deframer.rs:374-388) expects exactly one packet
     from rustradio_tpu.ops.il2p import il2p_deframe
 
-    bits = np.fromfile("/root/reference/testdata/il2p.bits", np.uint8)
+    bits = np.fromfile(IL2P_BITS, np.uint8)
     hdrs = il2p_deframe(bits)
     assert len(hdrs) == 1
     h = hdrs[0]
@@ -138,11 +142,12 @@ def test_il2p_header_decode():
     assert h.payload_size == 0 and h.fec
 
 
+@pytest.mark.skipif(not os.path.exists(IL2P_BITS), reason="reference testdata absent")
 def test_il2p_block_in_graph():
     from rustradio_tpu import blocks
     from rustradio_tpu.graph import Graph
 
-    bits = np.fromfile("/root/reference/testdata/il2p.bits", np.uint8)
+    bits = np.fromfile(IL2P_BITS, np.uint8)
     g = Graph()
     deframer = blocks.Il2pDeframer()
     g.chain(blocks.VectorSource(bits), deframer, blocks.NullSink())

@@ -433,41 +433,33 @@ def test_run_stream_profile_dir(tmp_path):
     assert glob.glob(d + "/**/*.xplane.pb", recursive=True)
 
 
-def test_segments_split_on_compile_group_conflict():
-    # the fuser must never put conv-flavored and pallas-flavored blocks in
-    # one jit program (the TPU compile pathology, Block.compile_group);
-    # groups are set explicitly here since CI runs on CPU
-    g = Graph()
-    a = blocks.AddConst(1.0)
-    b = blocks.MultiplyConst(2.0)
-    c = blocks.AddConst(3.0)
-    d = blocks.MultiplyConst(4.0)
-    b.compile_group = "pallas"
-    c.compile_group = "conv"
-    sink = g.add(
-        blocks.VectorSink(),
-        g.add(d, g.add(c, g.add(b, g.add(a, g.add(
-            blocks.VectorSource(np.arange(16, dtype=np.float32))))))),
-    )
-    segs = g._segments()
-    seg_lists = [[n.block for n in s] for s in segs.values()]
-    for seg in seg_lists:
-        groups = {getattr(x, "compile_group", None) for x in seg} - {None}
-        assert len(groups) <= 1, f"mixed flavors fused: {groups}"
-    # and the graph still computes correctly across the split
-    g.run()
-    np.testing.assert_allclose(
-        sink.block.data(), ((np.arange(16) + 1) * 2 + 3) * 4
-    )
-
-
-def test_segments_fuse_when_groups_agree():
+def test_segments_fuse_device_chain():
+    # a run of fusable device blocks compiles into ONE segment
     g = Graph()
     b1, b2 = blocks.AddConst(1.0), blocks.MultiplyConst(2.0)
-    b1.compile_group = b2.compile_group = "pallas"
     g.chain(blocks.VectorSource(np.ones(8, np.float32)), b1, b2, blocks.NullSink())
     segs = g._segments()
     assert any(len(s) == 2 for s in segs.values())
+
+
+def test_segments_split_around_host_block():
+    # a host block between device blocks ends one segment and starts the
+    # next; the graph still computes the composed chain
+    g = Graph()
+    sink = blocks.VectorSink()
+    g.chain(
+        blocks.VectorSource(np.arange(16, dtype=np.float32)),
+        blocks.AddConst(1.0),
+        blocks.MultiplyConst(2.0),
+        blocks.Inspect(lambda x: None),
+        blocks.AddConst(3.0),
+        blocks.MultiplyConst(4.0),
+        sink,
+    )
+    members = [[n.block.name() for n in s] for s in g._segments().values()]
+    assert all("Inspect" not in m for m in members)
+    g.run()
+    np.testing.assert_allclose(sink.data(), ((np.arange(16) + 1) * 2 + 3) * 4)
 
 
 def test_scan_runner_preserves_tags():

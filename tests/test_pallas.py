@@ -1,14 +1,13 @@
-"""Pallas kernels: numerical equivalence (CPU fallback paths; the TPU
-compiled paths were verified on hardware — see commit log)."""
+"""FM chain numerics on the plain (XLA) form, fast_atan2, and the FIR
+dispatch between direct conv and overlap-save.  The kernel form is covered
+in tests/test_pallas_interpret.py."""
 
 import numpy as np
+import pytest
 
 from rustradio_tpu import ops
-from rustradio_tpu.ops.pallas_kernels import (
-    fast_atan2,
-    pallas_fir_decimate,
-    pallas_quad_demod,
-)
+from rustradio_tpu.ops.demod import fast_atan2
+from rustradio_tpu.ops.fir import CONV_MAX_TAPS_PER_DECI, _conv1d, use_conv
 
 
 def test_fast_atan2_accuracy():
@@ -29,55 +28,70 @@ def test_fast_atan2_axes():
         assert abs(got - want) < 2e-4, (y, x, got, want)
 
 
-def test_pallas_quad_demod_matches():
-    rng = np.random.RandomState(1)
-    x = (rng.randn(4096) + 1j * rng.randn(4096)).astype(np.complex64)
-    got = np.asarray(pallas_quad_demod(x, 0.7))
-    want = np.asarray(ops.quadrature_demod(x, 0.7))
+def _fir_full_f64(x, taps, deci):
+    y = np.convolve(np.asarray(x, np.complex128), np.asarray(taps, np.complex128))
+    return y[: len(x)][::deci]
+
+
+@pytest.mark.parametrize("deci,ntaps", [(1, 5), (4, 8), (1, 9), (2, 33), (3, 49),
+                                        (4, 49), (5, 128), (7, 300)])
+def test_fir_filter_full_matches_f64(deci, ntaps):
+    # both sides of the conv / overlap-save threshold, power-of-two and
+    # other decimations, complex input
+    rng = np.random.RandomState(deci * 1000 + ntaps)
+    x = (rng.randn(5000) + 1j * rng.randn(5000)).astype(np.complex64)
+    taps = (rng.randn(ntaps) / ntaps).astype(np.float32)
+    got = np.asarray(ops.fir_filter_full(x, taps, deci))
+    want = _fir_full_f64(x, taps, deci)
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=3e-4)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_pallas_fir_decimate_matches():
+@pytest.mark.parametrize("ntaps", [4 * CONV_MAX_TAPS_PER_DECI, 4 * CONV_MAX_TAPS_PER_DECI + 1, 65])
+def test_fir_filter_valid_real_matches_conv(ntaps):
+    # valid alignment and a real output whatever the tap count
+    rng = np.random.RandomState(ntaps)
+    x = rng.randn(3001).astype(np.float32)
+    taps = rng.randn(ntaps).astype(np.float32)
+    got = np.asarray(ops.fir_filter(x, taps, 4))
+    want = np.asarray(_conv1d(x, taps, stride=4))[: (len(x) - ntaps) // 4 + 1]
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("ntaps,deci,want", [(5, 1, True), (9, 1, False),
+                                              (17, 4, True), (33, 4, False)])
+def test_fir_dispatch_threshold(ntaps, deci, want):
+    # the crossover measured on the card: conv cost grows with ntaps/deci
+    assert use_conv(ntaps, deci) is want
+
+
+def test_conv1d_real_taps_stored_complex():
+    # a real design stored as complex64 (low_pass_complex) filters the
+    # same as its real taps
     from rustradio_tpu import taps as tg
 
     rng = np.random.RandomState(2)
-    lp = tg.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0)
+    lp = np.asarray(tg.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0))
     x = (rng.randn(4096) + 1j * rng.randn(4096)).astype(np.complex64)
-    got = np.asarray(pallas_fir_decimate(x, lp, 4))
-    want = np.asarray(ops.fir_filter_full(x, lp, deci=4))
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    got = np.asarray(_conv1d(x, lp, 4, len(lp) - 1))
+    want = np.asarray(_conv1d(x, np.real(lp).astype(np.float32), 4, len(lp) - 1))
+    np.testing.assert_array_equal(got, want)
 
 
-def test_pallas_fir_decimate_real():
-    rng = np.random.RandomState(3)
-    x = rng.randn(1000).astype(np.float32)
-    taps = rng.randn(21).astype(np.float32)
-    got = np.asarray(pallas_fir_decimate(x, taps, 3))
-    want = np.asarray(ops.fir_filter_full(x, taps, deci=3))
-    np.testing.assert_allclose(got, want, atol=1e-4)
+def _chain_f64(xr, xi, lp, n, deci):
+    x64 = xr.astype(np.float64) + 1j * xi.astype(np.float64)
+    yd = np.convolve(x64, lp.astype(np.float64))[np.arange(-(-n // deci)) * deci]
+    d = np.conj(yd[:-1]) * yd[1:]
+    return np.arctan2(d.imag, d.real)
 
 
-def test_pallas_fir_decimate_tail_shifts():
-    # deci/ntaps combos whose shift count is NOT a multiple of deci
-    # exercise the ragged 128-lane tail blocks of the banded layout
-    rng = np.random.RandomState(4)
-    for deci, ntaps in [(2, 33), (3, 49), (4, 49), (5, 128), (7, 300)]:
-        x = rng.randn(5000).astype(np.float32)
-        taps = (rng.randn(ntaps) / ntaps).astype(np.float32)
-        got = np.asarray(pallas_fir_decimate(x, taps, deci))
-        want = np.asarray(ops.fir_filter_full(x, taps, deci=deci))
-        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=f"{deci}/{ntaps}")
-
-
-def test_fm_chain_w3_parity_budget():
-    """precision="w3" must stay within the framework's 1e-3 rad parity
-    budget vs float64 on its contract domain: 8-bit-grid input (exact in
-    bf16).  Measured on v5e hardware: max 1.25e-5 rad at 50.3 Gsps (the
-    r3 headline); this CPU test exercises the same quantize-and-split
-    semantics through the fallback path."""
+@pytest.mark.parametrize("precision", ["highest", "w3", "i8"])
+def test_fm_chain_w3_parity_budget(precision):
+    """Every precision stays within the framework's 1e-3 rad parity budget
+    vs float64 on its contract domain: 8-bit-grid input (exact in bf16
+    and on the s8 grid)."""
     from rustradio_tpu import taps as tg
-    from rustradio_tpu.ops.pallas_kernels import pallas_fm_chain
 
     rng = np.random.RandomState(5)
     n = 1 << 15
@@ -85,26 +99,22 @@ def test_fm_chain_w3_parity_budget():
     lp = np.real(np.asarray(
         tg.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0, "hamming"))
     ).astype(np.float32)
-    xr = np.clip(np.round(0.3 * rng.randn(n) * 128), -128, 127).astype(np.float32) / 128
-    xi = np.clip(np.round(0.3 * rng.randn(n) * 128), -128, 127).astype(np.float32) / 128
-    got = np.asarray(pallas_fm_chain(xr, xi, lp, deci, 1.0, precision="w3"))
-    x64 = xr.astype(np.float64) + 1j * xi.astype(np.float64)
-    yd = np.convolve(x64, lp.astype(np.float64))[np.arange(-(-n // deci)) * deci]
-    d = np.conj(yd[:-1]) * yd[1:]
-    want = np.arctan2(d.imag, d.real)
-    L = min(len(got), len(want))
-    err = np.abs(got[8:L - 8] - want[8:L - 8]).max()
+    # the rtl-sdr wire grid: (u8 - 127) / 128
+    u8 = np.clip(np.round(0.3 * rng.randn(2, n) * 128 + 127), 0, 255)
+    xr, xi = ((u8 - 127.0) / 128.0).astype(np.float32)
+    got = np.asarray(ops.fm_chain(xr, xi, lp, deci, 1.0, precision))
+    want = _chain_f64(xr, xi, lp, n, deci)
+    assert got.shape == want.shape
+    err = np.abs(got[8:-8] - want[8:-8]).max()
     assert err < 1e-3, err
 
 
 def test_fm_chain_offset_folds_exactly():
-    # filter(x + c) == filter(x) + c*sum(taps): the offset scalar rides
-    # POST-dot (one multiply-add per output, not a VPU pass over input).
-    # Compared against float64 ground truth of the offset signal with a
-    # DC-passing low-pass, so the filtered samples sit well away from the
-    # atan2 singularity.
+    # filter(x + c) == filter(x) + c*sum(taps): the offset rides
+    # post-filter.  Compared against float64 ground truth of the offset
+    # signal with a DC-passing low-pass, so the filtered samples sit well
+    # away from the atan2 singularity.
     from rustradio_tpu import taps as tg
-    from rustradio_tpu.ops.pallas_kernels import pallas_fm_chain
 
     rng = np.random.RandomState(6)
     n = 1 << 13
@@ -115,14 +125,21 @@ def test_fm_chain_offset_folds_exactly():
     xr = (0.2 * rng.randn(n)).astype(np.float32)
     xi = (0.2 * rng.randn(n)).astype(np.float32)
     c = 0.37
-    got = np.asarray(pallas_fm_chain(xr, xi, lp, deci, 1.0, offset=c))
-    x64 = (xr + c).astype(np.float64) + 1j * (xi + c).astype(np.float64)
-    yd = np.convolve(x64, lp.astype(np.float64))[np.arange(-(-n // deci)) * deci]
-    d = np.conj(yd[:-1]) * yd[1:]
-    want = np.arctan2(d.imag, d.real)
-    # skip the zero-history warm-up: the kernel's DC fold offsets the
-    # synthetic history too (c*sum(taps) uniformly), while np.convolve's
-    # implied history stays zero — they agree only once the filter fills
+    got = np.asarray(ops.fm_chain(xr, xi, lp, deci, 1.0, dc_offset=c))
+    want = _chain_f64(xr + c, xi + c, lp, n, deci)
+    # skip the zero-history warm-up: the DC fold offsets the synthetic
+    # history too (c*sum(taps) uniformly), while np.convolve's implied
+    # history stays zero — they agree only once the filter fills
     warm = len(lp) // deci + 2
-    L = min(len(got), len(want))
-    np.testing.assert_allclose(got[warm:L - 8], want[warm:L - 8], atol=3e-4)
+    np.testing.assert_allclose(got[warm:-8], want[warm:-8], atol=3e-4)
+
+
+def test_fm_demod_chain_planar_equals_complex_entry():
+    # the planar and complex entry points are the same chain
+    from rustradio_tpu.models.fm import fm_demod_chain, fm_demod_chain_planar
+
+    rng = np.random.RandomState(7)
+    x = (0.3 * (rng.randn(8192) + 1j * rng.randn(8192))).astype(np.complex64)
+    a = np.asarray(fm_demod_chain(x))
+    b = np.asarray(fm_demod_chain_planar(x.real.copy(), x.imag.copy()))
+    np.testing.assert_array_equal(a, b)

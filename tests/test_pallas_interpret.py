@@ -1,176 +1,205 @@
-"""Run the REAL Pallas kernel bodies under interpret mode on CPU.
+"""The fused FM kernel (ops/fm.py) under the Pallas interpreter.
 
-The CPU suite otherwise never executes the TPU kernel code (``_on_tpu()``
-routes to XLA fallbacks), so tilings, banded weight layouts, shift-block
-slicing, roll-based prev-sample construction, and the cross-tile seam
-fixes had no CI coverage.  ``pallas_kernels._INTERPRET`` forces the
-kernel paths through ``pl.pallas_call(interpret=True)`` — pure CPU
-emulation, compared here against float64 ground truth.
+The kernel compiles only for the GPU (Triton route); on the CPU the
+``interpret_kernels`` fixture sets ``backend.INTERPRET`` so the real kernel
+body — tile loads, masks, tap rows, the carried previous sample across
+program seams — runs in the interpreter and is compared with float64
+ground truth.  chip_smoke.py runs the compiled kernel on the card.
 """
 
 import numpy as np
 import pytest
 
-import rustradio_tpu.ops.pallas_kernels as pk
+from rustradio_tpu import backend
+import rustradio_tpu.ops.fm as fc
 
 
 @pytest.fixture
 def interpret_kernels(monkeypatch):
-    monkeypatch.setattr(pk, "_INTERPRET", True)
+    monkeypatch.setattr(backend, "INTERPRET", True)
+
+
+@pytest.fixture
+def small_blocks(interpret_kernels, monkeypatch):
+    # 16 tile rows per program: several programs and seams at test sizes
+    monkeypatch.setattr(fc, "ROWS", 16)
 
 
 def _fir_deci_f64(x, taps, deci):
     """y[m] = sum_j taps[j] x[m*deci - j], zero history, f64."""
     x = np.asarray(x, np.float64)
+    y = np.convolve(x, np.asarray(taps, np.float64))[: len(x)]
+    return y[::deci]
+
+
+def _fm_chain_f64(xr, xi, taps, deci, gain, dc=0.0):
     t = np.asarray(taps, np.float64)
-    m = -(-len(x) // deci)
-    xp = np.concatenate([np.zeros(len(t), np.float64), x,
-                         np.zeros(deci * m, np.float64)])
-    return np.stack(
-        [np.dot(t, xp[len(t) + k * deci : len(t) + k * deci - len(t) : -1])
-         for k in range(m)]
-    )
-
-
-def test_fir_decimate_interpret_multi_tile(interpret_kernels):
-    rng = np.random.RandomState(0)
-    taps = rng.randn(49).astype(np.float32)
-    # 3 tiles of tile_rows=128 at deci=4 plus a ragged tail: covers the
-    # grid loop, the halo block, and the full-group + column-slice shifts
-    n = 3 * 128 * 128 * 4 + 777
-    x = rng.randn(n).astype(np.float32)
-    got = np.asarray(pk.pallas_fir_decimate(x, taps, 4, tile_rows=128))
-    want = _fir_deci_f64(x, taps, 4)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
-
-
-def test_fir_decimate_interpret_deci1_long_taps(interpret_kernels):
-    rng = np.random.RandomState(1)
-    taps = rng.randn(130).astype(np.float32)  # nshift 2 at deci 1
-    n = 2 * 128 * 128 + 55
-    x = rng.randn(n).astype(np.float32)
-    got = np.asarray(pk.pallas_fir_decimate(x, taps, 1, tile_rows=128))
-    want = _fir_deci_f64(x, taps, 1)
-    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
-
-
-def test_quad_demod_interpret_seams(interpret_kernels):
-    rng = np.random.RandomState(2)
-    n = 2 * 128 * 128 + 100
-    x = (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
-    got = np.asarray(pk.pallas_quad_demod(x, 0.7, tile_rows=128))
-    d = np.conj(x[:-1].astype(np.complex128)) * x[1:].astype(np.complex128)
-    want = 0.7 * np.arctan2(d.imag, d.real)
-    assert got.shape == want.shape
-    # fast_atan2 polynomial: |err| < ~1e-4 rad
-    np.testing.assert_allclose(got, want, atol=2e-4)
-
-
-def _fm_chain_f64(xr, xi, taps, deci, gain):
-    yr = _fir_deci_f64(xr, taps, deci)
-    yi = _fir_deci_f64(xi, taps, deci)
+    yr = _fir_deci_f64(xr, taps, deci) + dc * t.sum()
+    yi = _fir_deci_f64(xi, taps, deci) + dc * t.sum()
     y = yr + 1j * yi
     d = np.conj(y[:-1]) * y[1:]
     return gain * np.arctan2(d.imag, d.real)
 
 
-@pytest.mark.parametrize(
-    "precision,atol",
-    [("highest", 2e-4), ("w3", 3e-4), ("w2", 8e-3), ("split3", 8e-3),
-     ("i8", 3e-4)],
-)
-def test_fm_chain_interpret_all_precisions(interpret_kernels, precision, atol):
-    rng = np.random.RandomState(3)
-    n = 2 * 128 * 128 * 4 + 123  # 2 full tiles at tile_rows=128 + tail
-    # 8-bit wire grid: exact in bf16 — required by the w3/w2 modes
-    a = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    b = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    taps = np.asarray(
-        np.hamming(49) * np.sinc(0.2 * (np.arange(49) - 24)), np.float32
-    )
-    got = np.asarray(
-        pk.pallas_fm_chain(a, b, taps, 4, 0.9, tile_rows=128,
-                           precision=precision)
-    )
-    want = _fm_chain_f64(a, b, taps, 4, 0.9)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=atol)
+def _wire(rng, n):
+    """Planes on the 8-bit (u8 - 127)/128 wire grid: exact in bf16."""
+    return (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
 
 
-@pytest.mark.parametrize("deci,ntaps", [(1, 31), (1, 128), (4, 128)])
-def test_fm_chain_interpret_i8_deci_taps_matrix(interpret_kernels, deci,
-                                                ntaps):
-    # the i8 ladder must stay exact-int32 across decimations and tap
-    # counts (|acc| bound scales with K = nshift*128)
-    rng = np.random.RandomState(6)
-    n = 128 * 128 * deci + 57
-    a = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    b = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    taps = np.asarray(
-        np.hamming(ntaps) * np.sinc(0.18 * (np.arange(ntaps) - ntaps // 2)),
+def _taps(ntaps, cutoff=0.2):
+    return np.asarray(
+        np.hamming(ntaps) * np.sinc(cutoff * (np.arange(ntaps) - ntaps // 2)),
         np.float32,
     )
-    got = np.asarray(
-        pk.pallas_fm_chain(a, b, taps, deci, 0.8, tile_rows=128,
-                           precision="i8")
-    )
-    want = _fm_chain_f64(a, b, taps, deci, 0.8)
-    np.testing.assert_allclose(got, want, atol=1e-3)
-    assert float(np.max(np.abs(got - want))) < 5e-4
 
 
-@pytest.mark.parametrize("precision", ["w3", "i8"])
-def test_fm_chain_interpret_offset_fold(interpret_kernels, precision):
-    # DC offset folds in post-dot: filter(x + c) = filter(x) + c*sum(taps)
+# (deci, ntaps, n): several programs at 16 rows plus ragged tails, odd
+# lengths, deci 1 and 4, a non-power-of-two deci (padded tile columns),
+# long taps, and the 1-tap chain (the bare discriminator)
+_SHAPES = [(4, 49, 2 * 128 * 4 + 123), (1, 31, 3001), (3, 50, 4097),
+           (4, 130, 9000), (1, 1, 2000), (2, 2, 999)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "w3"])
+@pytest.mark.parametrize("deci,ntaps,n", _SHAPES)
+def test_fm_kernel_matches_f64(small_blocks, precision, deci, ntaps, n):
+    rng = np.random.RandomState(3 + deci + ntaps)
+    a, b = _wire(rng, n), _wire(rng, n)
+    taps = _taps(ntaps)
+    got = np.asarray(fc.fm_chain_kernel(a, b, taps, deci, 0.9, precision))
+    want = _fm_chain_f64(a, b, taps, deci, 0.9)
+    assert got.shape == want.shape
+    # fast_atan2 polynomial: |err| < ~1e-4 rad, plus f32 accumulation
+    np.testing.assert_allclose(got, want, atol=3e-4)
+
+
+@pytest.mark.parametrize("precision", ["highest", "w3"])
+def test_fm_kernel_offset_fold(small_blocks, precision):
+    # DC offset folds in post-filter: filter(x + c) = filter(x) + c*sum(taps)
     rng = np.random.RandomState(4)
-    n = 128 * 128 * 4
-    a = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    b = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
+    n = 128 * 4 * 3 + 7
+    a, b = _wire(rng, n), _wire(rng, n)
     taps = np.asarray(np.hamming(33), np.float32)
-    c = 0.3125  # exact bf16 so the f64 model sees the same value
-    got = np.asarray(
-        pk.pallas_fm_chain(a, b, taps, 4, 1.0, tile_rows=128, offset=c,
-                           precision=precision)
-    )
-    want = _fm_chain_f64(a.astype(np.float64) + c, b.astype(np.float64) + c,
-                         taps, 4, 1.0)
-    # skip the zero-history warm-up: the kernel's DC fold applies c under
-    # the pad region too (documented; same skip as tests/test_pallas.py)
-    warm = -(-len(taps) // 4)
-    np.testing.assert_allclose(got[warm:], want[warm:], atol=3e-4)
+    c = 0.3125
+    got = np.asarray(fc.fm_chain_kernel(a, b, taps, 4, 1.0, precision, c))
+    want = _fm_chain_f64(a, b, taps, 4, 1.0, dc=c)
+    np.testing.assert_allclose(got, want, atol=3e-4)
+
+
+def test_fm_kernel_bf16_planes_equal_rounded_f32(small_blocks):
+    # w3 rounds f32 planes to bf16 in registers, so a producer that writes
+    # bf16 planes gets the same audio bit for bit
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(5)
+    a = (0.3 * rng.randn(3000)).astype(np.float32)
+    b = (0.3 * rng.randn(3000)).astype(np.float32)
+    taps = _taps(49)
+    f32 = np.asarray(fc.fm_chain_kernel(a, b, taps, 4, 1.0, "w3"))
+    b16 = np.asarray(fc.fm_chain_kernel(jnp.asarray(a, jnp.bfloat16),
+                                        jnp.asarray(b, jnp.bfloat16), taps, 4,
+                                        1.0, "w3"))
+    np.testing.assert_array_equal(f32, b16)
+
+
+def test_fm_kernel_block_size_invariant(interpret_kernels, monkeypatch):
+    # each output's accumulation order is fixed by the taps, not the
+    # program size: every block size gives the same bits
+    rng = np.random.RandomState(6)
+    a, b = _wire(rng, 5000), _wire(rng, 5000)
+    taps = _taps(49)
+    outs = []
+    for rows in (16, 64):
+        monkeypatch.setattr(fc, "ROWS", rows)
+        outs.append(np.asarray(fc.fm_chain_kernel(a, b, taps, 4, 1.0, "highest")))
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_fm_kernel_short_input(interpret_kernels):
+    # fewer than two filtered samples: no demod output at all
+    taps = _taps(9)
+    got = fc.fm_chain_kernel(np.ones(3, np.float32), np.ones(3, np.float32),
+                             taps, 4, 1.0)
+    assert got.shape == (0,)
+    got = fc.fm_chain_kernel(np.ones(5, np.float32), np.ones(5, np.float32),
+                             taps, 4, 1.0)
+    assert got.shape == (1,)
+
+
+def test_fm_kernel_equals_plain_form(small_blocks):
+    # the dispatch's two forms agree within the fast-atan2 budget
+    rng = np.random.RandomState(7)
+    a, b = _wire(rng, 4096), _wire(rng, 4096)
+    taps = _taps(49)
+    k = np.asarray(fc.fm_chain_kernel(a, b, taps, 4, 1.0, "w3"))
+    p = np.asarray(fc.fm_chain_plain(a, b, taps, 4, 1.0, "w3"))
+    np.testing.assert_allclose(k, p, atol=2e-4)
+
+
+def test_tap_rows_layout():
+    # T_0[i, c] = taps[(c + 1)*deci + ntaps - 1 - i] makes y[t0 + c] from a
+    # row x[base + i]; T_1 is the same one output earlier; the three bf16
+    # terms of each sum back to the f32 taps
+    taps = np.arange(1, 8, dtype=np.float32)  # 7 taps, exact in bf16
+    t = fc._toeplitz(taps, 3, *fc._geometry(7, 3)).astype(np.float32)
+    assert t.shape == (6, 64, 16)
+    t0, t1 = t[0:3].sum(axis=0), t[3:6].sum(axis=0)
+    np.testing.assert_array_equal(t0[:, 0][:11], [0, 0, 0, 7, 6, 5, 4, 3, 2, 1, 0])
+    np.testing.assert_array_equal(t1[:, 0][:8], [7, 6, 5, 4, 3, 2, 1, 0])
+    # T_1 is T_0 one output earlier; one output later is deci samples later
+    np.testing.assert_array_equal(t1[:, 1:], t0[:, :-1])
+    np.testing.assert_array_equal(t0[3:, 1:], t0[:-3, :-1])
+    # a row of input, filtered through the matrices, is the direct FIR
+    rng = np.random.RandomState(2)
+    x = rng.randn(200)
+    base, t_0 = 30, (30 + 6) // 3 + 1  # base = (t0 - 1)*deci - (ntaps - 1)
+    row = x[base : base + 64]
+    for c in range(16):
+        want = sum(taps[j] * x[(t_0 + c) * 3 - j] for j in range(7))
+        np.testing.assert_allclose(row @ t0[:, c], want, rtol=1e-6)
+        want = sum(taps[j] * x[(t_0 + c - 1) * 3 - j] for j in range(7))
+        np.testing.assert_allclose(row @ t1[:, c], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("ntaps,deci,want", [
+    (49, 4, (16, 128)),    # the bench chain: 2x load redundancy
+    (49, 1, (64, 128)),    # rtl_fm's chain: P grows to fill the span
+    (1, 1, (16, 32)),
+    (50, 3, (16, 128)),
+    (240, 1, (16, 256)),
+])
+def test_kernel_geometry(ntaps, deci, want):
+    p, k = fc._geometry(ntaps, deci)
+    assert (p, k) == want
+    assert p >= 16 and p * deci + ntaps <= k
 
 
 @pytest.mark.parametrize(
-    "precision,atol",
-    [("highest", 2e-4), ("w3", 3e-4), ("w2", 8e-3), ("split3", 8e-3),
-     ("i8", 3e-4)],
+    "taps,deci,precision,want",
+    [
+        (np.ones(49, np.float32), 4, "w3", True),
+        (np.ones(49, np.float32), 4, "highest", True),
+        (np.ones(49, np.float32), 4, "i8", False),  # plain form only
+        (np.ones(49, np.complex64) * (1 + 1j), 4, "w3", False),
+        (np.ones(fc.KERNEL_MAX_SPAN, np.float32), 4, "w3", False),
+        (np.ones(192, np.float32), 4, "w3", True),   # span 256 at deci 4
+        (np.ones(112, np.float32), 1, "w3", True),   # span 128 at deci 1
+        (np.ones(113, np.float32), 1, "w3", False),  # span 256 at deci 1
+    ],
 )
-def test_fm_chain_db_packed_interpret(interpret_kernels, precision, atol):
-    # the double-buffered pipeline fed pre-packed planes (fm_plane_pack):
-    # in-kernel seam carry + manual DMA loop, all precisions
-    rng = np.random.RandomState(4)
-    n = 3 * 128 * 128 * 4 + 57  # 3 tiles at tile_rows=128 + ragged tail
-    a = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    b = (rng.randint(0, 256, n).astype(np.float32) - 127.0) / 128.0
-    taps = np.asarray(
-        np.hamming(49) * np.sinc(0.2 * (np.arange(49) - 24)), np.float32
-    )
-    pa = pk.fm_plane_pack(a, taps, 4, tile_rows=128, precision=precision)
-    pb = pk.fm_plane_pack(b, taps, 4, tile_rows=128, precision=precision)
-    got = np.asarray(
-        pk.pallas_fm_chain(pa, pb, taps, 4, 0.9, tile_rows=128,
-                           precision=precision, n=n)
-    )
-    want = _fm_chain_f64(a, b, taps, 4, 0.9)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=atol)
-    # and the db pipeline from FLAT planes matches too (slow path)
-    got2 = np.asarray(
-        pk.pallas_fm_chain(a, b, taps, 4, 0.9, tile_rows=128,
-                           precision=precision, pipeline="db")
-    )
-    np.testing.assert_allclose(got2, want, atol=atol)
+def test_fm_chain_dispatch(interpret_kernels, taps, deci, precision, want):
+    assert fc.kernel_takes(taps, deci, precision) is want
+
+
+def test_fm_chain_dispatch_cpu_takes_plain():
+    # without the interpreter, the CPU never runs the kernel
+    assert fc.kernel_takes(np.ones(49, np.float32), 4, "w3") is False
+
+
+def test_fm_chain_rejects_unknown_precision():
+    with pytest.raises(ValueError):
+        fc.fm_chain(np.ones(64, np.float32), np.ones(64, np.float32),
+                    np.ones(9, np.float32), 4, precision="w2")
 
 
 # ---------------------------------------------------------------- lowering
@@ -191,7 +220,7 @@ def _fir_valid_f64(x, taps, deci):
 
 def test_graph_fm_lowering_offline(interpret_kernels):
     # [FloatToComplex ->] FirFilter -> QuadratureDemod lowers to ONE
-    # pallas_fm_chain call (r5 verdict item 1); output matches the f64
+    # fused kernel call; output matches the f64
     # composed chain within the kernel's documented fast-atan2 budget.
     from rustradio_tpu import blocks
     from rustradio_tpu.graph import Graph
@@ -242,7 +271,7 @@ def test_graph_fm_lowering_offline(interpret_kernels):
 def test_graph_fm_lowering_streaming_equals_offline(interpret_kernels):
     # chunked lowered execution over the ORIGINAL blocks' states matches
     # the lowered offline stream (seam samples recomputed by full-window
-    # dots differ from the in-kernel banded accumulation by <1e-5)
+    # dots differ from the in-kernel accumulation by <1e-5)
     from rustradio_tpu import blocks
     from rustradio_tpu.graph import Graph
 
@@ -272,6 +301,36 @@ def test_graph_fm_lowering_streaming_equals_offline(interpret_kernels):
         np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+def test_graph_fm_lowering_streaming_w3_off_grid(interpret_kernels):
+    # under w3 the kernel rounds the planes to bf16; the seam samples and
+    # the carried demod state must be rounded the same way, so chunked
+    # output equals offline output even for input off the 8-bit grid
+    from rustradio_tpu import blocks
+    from rustradio_tpu.graph import Graph
+
+    rng = np.random.RandomState(10)
+    taps = rng.randn(49).astype(np.float32) / 7
+    data = (rng.randn(6000) + 1j * rng.randn(6000)).astype(np.complex64)
+
+    def run(chunk):
+        g = Graph()
+        s = blocks.VectorSink()
+        g.chain(blocks.VectorSource(data),
+                blocks.FirFilter(taps, deci=4, precision="w3"),
+                blocks.QuadratureDemod(1.0), s)
+        if chunk:
+            g.run_stream(chunk_size=chunk)
+        else:
+            g.run()
+        return np.asarray(s.data())
+
+    want = run(None)
+    for chunk in (2048, 1900):
+        got = run(chunk)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 def test_graph_fm_lowering_skips_tee_consumer(interpret_kernels):
     # a mid-pattern consumer (Tee on the filtered stream) blocks the
     # lowering; the composed path still runs and stays correct
@@ -299,38 +358,24 @@ def test_graph_fm_lowering_skips_tee_consumer(interpret_kernels):
     np.testing.assert_allclose(np.asarray(s1.data()), want, atol=3e-4)
 
 
-def test_packed_ring_device_loop(interpret_kernels):
-    # PackedIqRingSource -> FirFilter -> QuadratureDemod ->
-    # DeviceFoldSink through Graph.compile_device_loop: the zero-copy
-    # windowed kernel (row offset + seeded demod carry) over a resident
-    # packed ring must reproduce the composed valid chain exactly across
-    # chunk seams.
-    import jax.numpy as jnp
-
+def test_graph_fm_lowering_takes_complex_stored_taps(interpret_kernels):
+    # low_pass_complex designs are real taps stored as complex64: the
+    # lowering still fuses them, with the real part as the kernel's taps
     from rustradio_tpu import blocks
+    from rustradio_tpu import taps as tg
     from rustradio_tpu.graph import Graph
+    from rustradio_tpu.lowering import find_fm_pairs
 
-    rng = np.random.RandomState(11)
-    taps = (rng.randn(49) / 7).astype(np.float32)  # (49-1) % 4 == 0
-    deci, tile_rows = 4, 16
-    chunk = deci * 128 * tile_rows  # 8192
-    n = 2 * chunk
-    re = (np.round(np.clip(rng.randn(n) * 38, -128, 127)) / 128).astype(np.float32)
-    im = (np.round(np.clip(rng.randn(n) * 38, -128, 127)) / 128).astype(np.float32)
-
+    lp = np.asarray(tg.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0))
+    rng = np.random.RandomState(12)
+    data = (rng.randn(4000) + 1j * rng.randn(4000)).astype(np.complex64)
     g = Graph()
-    src = g.add(blocks.PackedIqRingSource(re, im, taps, deci,
-                                          precision="w3", tile_rows=tile_rows))
-    fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
-    q = g.add(blocks.QuadratureDemod(1.5), fir)
-    g.add(blocks.DeviceFoldSink(
-        fn=lambda c, x: c + jnp.sum(x) + jnp.sum(x * x)), q)
-    fn = g.compile_device_loop(chunk, 2)
-    got = float(list(fn(0).values())[0])
-
-    want_y = _fir_valid_f64(re + 1j * im, taps, deci)
-    want = _demod_f64(want_y, 1.5)
-    # emitted stream = the full valid demod stream (both chunks)
-    assert len(want) == n // deci - (len(taps) - 1) // deci - 1
-    ref = float(np.sum(want) + np.sum(want * want))
-    np.testing.assert_allclose(got, ref, rtol=2e-3)
+    s = blocks.VectorSink()
+    g.chain(blocks.VectorSource(data), blocks.FirFilter(lp, deci=4),
+            blocks.QuadratureDemod(1.0), s)
+    plans, _ = find_fm_pairs(list(g._segments().values())[0], set())
+    assert len(plans) == 1
+    assert next(iter(plans.values()))["taps"].dtype == np.float32
+    g.run()
+    want = _demod_f64(_fir_valid_f64(data, np.real(lp), 4), 1.0)
+    np.testing.assert_allclose(np.asarray(s.data()), want, atol=3e-4)
